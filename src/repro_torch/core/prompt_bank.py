@@ -1,0 +1,231 @@
+"""Prompt Bank (§4.3): a two-layer query engine over prompt candidates.
+
+Layer 1 holds the K-medoid *representative prompts*; layer 2 the cluster
+members. Clustering distance = cosine distance between LLM *activation
+features* of each candidate (extracted once, offline). Lookup (Fig 5a)
+computes Eqn-1 ``score`` for the K representatives, picks the best
+cluster, then scores its members — ``K + C/K`` score evaluations instead
+of ``C`` (optimal ``K = sqrt(C)`` -> ``2 sqrt(C)``). Insertion (Fig 5b)
+routes the new candidate to the cluster whose medoid is nearest in
+feature space (NO score evaluation), and replacement evicts the member
+closest to its medoid (max diversity) once capacity is exceeded.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+from typing import Callable, List, Optional, Sequence, Tuple
+
+import numpy as np
+
+
+# ---------------------------------------------------------------------------
+# K-medoid clustering (PAM-lite: alternate assign / medoid update)
+# ---------------------------------------------------------------------------
+
+
+def cosine_distance(a: np.ndarray, b: np.ndarray) -> np.ndarray:
+    """a: (n, d); b: (m, d) -> (n, m) cosine distances in [0, 2]."""
+    an = a / (np.linalg.norm(a, axis=-1, keepdims=True) + 1e-12)
+    bn = b / (np.linalg.norm(b, axis=-1, keepdims=True) + 1e-12)
+    return 1.0 - an @ bn.T
+
+
+def k_medoids(
+    features: np.ndarray, k: int, *, iters: int = 25, seed: int = 0
+) -> Tuple[np.ndarray, np.ndarray]:
+    """Returns (medoid_indices (k,), assignment (n,)). Cosine distance.
+
+    §5.2: the paper found K-medoid over cosine converges where
+    Manhattan/Euclidean do not; we implement the cosine variant."""
+    n = features.shape[0]
+    k = min(k, n)
+    rng = np.random.default_rng(seed)
+    D = cosine_distance(features, features)
+    # k-means++-style seeding on the distance matrix
+    medoids = [int(rng.integers(n))]
+    for _ in range(k - 1):
+        dmin = np.clip(D[:, medoids].min(axis=1), 0.0, None)
+        if dmin.sum() <= 1e-12:      # all points coincide with a medoid
+            medoids.append(int(rng.integers(n)))
+            continue
+        probs = dmin / dmin.sum()
+        medoids.append(int(rng.choice(n, p=probs)))
+    medoids = np.array(sorted(set(medoids)))
+    while len(medoids) < k:  # de-dup fallback
+        cand = int(rng.integers(n))
+        if cand not in medoids:
+            medoids = np.append(medoids, cand)
+    for _ in range(iters):
+        assign = np.argmin(D[:, medoids], axis=1)
+        new_medoids = medoids.copy()
+        for ci in range(len(medoids)):
+            members = np.where(assign == ci)[0]
+            if len(members) == 0:
+                continue
+            sub = D[np.ix_(members, members)]
+            new_medoids[ci] = members[int(np.argmin(sub.sum(axis=1)))]
+        if np.array_equal(new_medoids, medoids):
+            break
+        medoids = new_medoids
+    assign = np.argmin(D[:, medoids], axis=1)
+    return medoids, assign
+
+
+# ---------------------------------------------------------------------------
+# The bank
+# ---------------------------------------------------------------------------
+
+
+@dataclass
+class PromptEntry:
+    prompt: np.ndarray            # (P, d) soft prompt (or token ids for text)
+    feature: np.ndarray           # (f,) activation feature
+    origin: str = ""              # provenance (task it was optimized for)
+
+
+@dataclass
+class LookupResult:
+    entry: PromptEntry
+    score: float
+    evaluations: int              # number of Eqn-1 evaluations performed
+    latency_s: float
+    cluster: int
+
+
+class PromptBank:
+    """Two-layer data structure with lookup / insert / replace (§4.3).
+
+    ``score_fn(prompt) -> float`` is Eqn 1 evaluated by the caller (it owns
+    the model + eval set); the bank is agnostic to how scores are computed,
+    which also lets tests drive it with synthetic scorers.
+    """
+
+    def __init__(
+        self,
+        *,
+        capacity: int = 3000,
+        num_clusters: int = 50,
+        seed: int = 0,
+    ):
+        self.capacity = capacity
+        self.num_clusters = num_clusters
+        self.seed = seed
+        self.entries: List[PromptEntry] = []
+        # two-layer structure
+        self.medoid_ids: List[int] = []          # layer 1: entry index per cluster
+        self.clusters: List[List[int]] = []      # layer 2: entry indices
+        self._built = False
+
+    # -- construction --------------------------------------------------------
+
+    def add_candidates(self, entries: Sequence[PromptEntry]) -> None:
+        self.entries.extend(entries)
+        self._built = False
+
+    def build(self) -> float:
+        """(Re-)cluster all candidates. Returns build time in seconds."""
+        t0 = time.time()
+        if not self.entries:
+            raise ValueError("empty bank")
+        feats = np.stack([e.feature for e in self.entries])
+        k = min(self.num_clusters, len(self.entries))
+        medoids, assign = k_medoids(feats, k, seed=self.seed)
+        self.medoid_ids = [int(m) for m in medoids]
+        self.clusters = [
+            [int(i) for i in np.where(assign == ci)[0]] for ci in range(len(medoids))
+        ]
+        self._built = True
+        return time.time() - t0
+
+    def __len__(self) -> int:
+        return sum(1 for e in self.entries if e.origin != "<evicted>")
+
+    # -- lookup (Fig 5a) ------------------------------------------------------
+
+    def lookup(self, score_fn: Callable[[PromptEntry], float]) -> LookupResult:
+        """Two-layer lookup: score K medoids, then members of the best
+        cluster; K + C/K evaluations total."""
+        assert self._built, "call build() first"
+        t0 = time.time()
+        evals = 0
+        best_ci, best_medoid_score = 0, float("inf")
+        for ci, mid in enumerate(self.medoid_ids):
+            s = score_fn(self.entries[mid])
+            evals += 1
+            if s < best_medoid_score:
+                best_medoid_score, best_ci = s, ci
+        best_idx, best_score = self.medoid_ids[best_ci], best_medoid_score
+        for idx in self.clusters[best_ci]:
+            if idx == self.medoid_ids[best_ci]:
+                continue
+            if self.entries[idx].origin == "<evicted>":
+                continue
+            s = score_fn(self.entries[idx])
+            evals += 1
+            if s < best_score:
+                best_score, best_idx = s, idx
+        return LookupResult(
+            entry=self.entries[best_idx],
+            score=best_score,
+            evaluations=evals,
+            latency_s=time.time() - t0,
+            cluster=best_ci,
+        )
+
+    def lookup_flat(self, score_fn) -> LookupResult:
+        """Brute force over all C candidates (the K=1 baseline of Fig 10b)."""
+        t0 = time.time()
+        scores = [score_fn(e) for e in self.entries]
+        i = int(np.argmin(scores))
+        return LookupResult(
+            entry=self.entries[i],
+            score=float(scores[i]),
+            evaluations=len(scores),
+            latency_s=time.time() - t0,
+            cluster=-1,
+        )
+
+    # -- insertion & replacement (Fig 5b) --------------------------------------
+
+    def insert(self, entry: PromptEntry) -> Tuple[int, Optional[int]]:
+        """Insert by feature similarity to medoids (no score evaluations).
+        Returns (cluster_idx, evicted_entry_idx or None)."""
+        assert self._built, "call build() first"
+        med_feats = np.stack([self.entries[m].feature for m in self.medoid_ids])
+        d = cosine_distance(entry.feature[None], med_feats)[0]
+        ci = int(np.argmin(d))                                    # C_sim
+        self.entries.append(entry)
+        new_idx = len(self.entries) - 1
+        self.clusters[ci].append(new_idx)
+        evicted = None
+        if len(self) > self.capacity:
+            evicted = self._replace(ci)
+        return ci, evicted
+
+    def _replace(self, ci: int) -> int:
+        """Evict the member of C_sim closest to its representative prompt
+        (maximizing remaining diversity). The medoid itself is kept."""
+        mid = self.medoid_ids[ci]
+        members = [i for i in self.clusters[ci] if i != mid]
+        if not members:
+            return -1
+        mfeat = self.entries[mid].feature[None]
+        feats = np.stack([self.entries[i].feature for i in members])
+        d = cosine_distance(feats, mfeat)[:, 0]
+        victim = members[int(np.argmin(d))]
+        self.clusters[ci].remove(victim)
+        # tombstone: keep list indices stable, mark entry unusable
+        self.entries[victim] = PromptEntry(
+            prompt=np.zeros_like(self.entries[victim].prompt),
+            feature=self.entries[victim].feature,
+            origin="<evicted>",
+        )
+        return victim
+
+    # -- stats ------------------------------------------------------------------
+
+    def expected_evaluations(self) -> float:
+        k = len(self.medoid_ids)
+        c = len(self.entries)
+        return k + c / max(k, 1)
