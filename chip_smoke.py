@@ -38,6 +38,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    the forward's input), beside how a WKV summation-order difference grows
    with depth; end to end on a 2-layer cut; that 2-layer cut, card against
    CPU, on Eqn-1 scores.
+8. deepseek-v2-236b (MLA + MoE) at full width, bf16, weights from --seed,
+   cut in depth to 1 dense + 8 MoE layers (7 if 8 leave under 6 GiB free):
+   (a) mla_decode against its plain version in bf16 and f32 at H = 128, 64
+   and 16, B = 1, 2 and 16, kv_len 1, 37, ragged and whole, and q_pos <
+   kv_len - 1; its times, beside the plain version, one SDPA call and the
+   bound, at the decode_32k (B = 16) and long_500k (B = 1) shapes; (b) the
+   decode_32k cache cut from batch 128 to 16, its first 32760 slots seeded,
+   then 8 serve steps with mla_decode launched once a layer, and the profile
+   of one step; (c) teacher-forced decode of 32 tokens against the forward,
+   the pairs dropped at the real capacity factor, and the routing flips;
+   (e) one Eqn-1 Prompt Bank lookup (48 candidates, 12 clusters, 33
+   positions) through score_ce; (d) a 2-layer f32 cut of the same weights,
+   card against CPU, on 4 decode steps.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}; the last line is
@@ -99,6 +112,22 @@ LAYER_DECODE_TOL = 1e-4
 # Decode logits of the 2-layer f32 cut, card against CPU: both f32, sums of
 # up to 18944 terms in another order.
 F32_LOGIT_TOL = 1e-4
+# deepseek-v2 decode against the forward in bf16 (phase 8c), with a capacity
+# factor of E / k so that nothing drops in either. A bf16 difference between
+# the two can flip a near-tie in a token's top-6 of 160 router
+# probabilities, which changes that token's layer output by far more than
+# rounding does, so both checks are held on the tokens whose routing
+# matched. Layer by layer (each layer fed the forward's own input, so no
+# difference carries between layers): ||decode - forward|| over the layer's
+# increment, at most LAYER_DECODE_BF16_TOL in every layer. End to end:
+# DECODE_REL_TOL on the logits of the tokens whose routing matched in every
+# MoE layer, which must be at least MIN_CLEAN_TOKENS of the tokens, and at
+# most MAX_FLIP_SHARE of the (token, layer) routings may differ (a decode
+# that routed on wrong inputs would differ in nearly all). bf16 rounding
+# flips about a fifth of the routings by layer 9 (PERF.md).
+LAYER_DECODE_BF16_TOL = 0.05
+MIN_CLEAN_TOKENS = 0.1
+MAX_FLIP_SHARE = 0.5
 
 
 def gpu_line() -> str:
@@ -156,9 +185,12 @@ def phase_build() -> str:
     print(f"[1] built {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, so in sorted(libs.items()):
         log = so.with_suffix(".log").read_text() if so.with_suffix(".log").exists() else ""
+        entry = ""
         for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"[1] ptxas {name}: {line.strip()}")
+            if "Compiling entry function" in line:
+                entry = line.split("'")[1]                 # the mangled kernel name
+            elif "registers" in line or "spill" in line:
+                print(f"[1] ptxas {name} {entry}: {line.strip()}")
     card = gpu_line()
     print(card)
     return card
@@ -425,14 +457,29 @@ def phase_profile(model, bank, results) -> None:
         profile_calls(f"[5] one evaluation at {positions} positions", lambda: fn(entry))
 
 
-def depth_cut(model, layers: int, dev):
-    """The first ``layers`` layers of ``model`` with its embeddings and final
-    norm, in f32, as two models: one on the card and one on the CPU."""
+def cut_state(model, layers: int):
+    """The config and the weights, copied to the CPU, of the first ``layers``
+    layers of ``model`` (in layer order across its segments) with its
+    embeddings and final norm, in f32."""
+    cut = model.cfg.with_overrides(num_layers=layers, dtype="float32", param_dtype="float32")
+    kept, i = set(), 0
+    for seg in model.segments:
+        for j in range(seg.count):
+            if i < layers:
+                kept.add(f"{seg.name}.{j}")
+            i += 1
+    names = {seg.name for seg in model.segments}
+    state = {k: v.cpu() for k, v in model.state_dict().items()
+             if k.split(".")[0] not in names or ".".join(k.split(".")[:2]) in kept}
+    return cut, state
+
+
+def depth_cut(cut_and_state, dev):
+    """The cut that ``cut_state`` made, as two models: one on the card and
+    one on the CPU (the caller may free the full model in between)."""
     from repro_torch.models import Model
 
-    cut = model.cfg.with_overrides(num_layers=layers, dtype="float32", param_dtype="float32")
-    state = {k: v for k, v in model.state_dict().items()
-             if not k.startswith("blocks.") or int(k.split(".")[1]) < layers}
+    cut, state = cut_and_state
     pair = []
     for device in (dev, "cpu"):
         m = Model(cut, device=device, seed=None)
@@ -503,10 +550,11 @@ def rwkv_depth_witness(model, tokens: torch.Tensor) -> dict:
     with torch.no_grad():
         x, positions = model.embed_inputs(tokens)
         xp = x
+        kind = model.segments[0].kind
         for block in model.blocks:
             y = block(x, positions)
-            cache = block_cache(cfg, model.kind, B, S, model.device)
-            dec = torch.cat([block_decode(cfg, model.kind, block, x[:, t:t + 1], cache, t)
+            cache = block_cache(cfg, kind, B, S, model.device)
+            dec = torch.cat([block_decode(cfg, kind, block, x[:, t:t + 1], cache, t)
                              for t in range(S)], dim=1)
             layer_gaps.append(((dec - y).norm() / (y - x).norm()).item())
             with plain_wkv():
@@ -637,7 +685,7 @@ def phase_serve(dev: torch.device, seed: int) -> dict:
     free_card()
 
     # (c) a 2-layer cut in f32, card against CPU
-    card, cpu = depth_cut(model, 2, dev)
+    card, cpu = depth_cut(cut_state(model, 2), dev)
     del model
     free_card()
     tokens = torch.randint(3, V, (2, 4), generator=gen, device=dev)
@@ -748,7 +796,7 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     del model
     free_card()
     rows[0]["witness"] = rwkv_depth_witness(f32, tokens)
-    card, cpu = depth_cut(f32, 2, dev)
+    card, cpu = depth_cut(cut_state(f32, 2), dev)
     del f32
     free_card()
     rows[0]["decode_rel"] = teacher_forced("[7] 2-layer cut", card, tokens)
@@ -772,21 +820,367 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     return {"rows": rows, "profiles": profiles, "launches": launches}
 
 
-def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict) -> list:
+# -- phase 8 --------------------------------------------------------------------
+
+def mla_bound(B: int, H: int, live: int, elt: int):
+    """Least time of one mla_decode call: the live latent rows (r + rd wide)
+    read once, q read and the output written once; per (head, live row)
+    2·(r + rd) operations for the score and 2·r for P·ckv, at the bf16
+    tensor-core rate."""
+    r, rd = 512, 64
+    nbytes = B * live * (r + rd) * elt + B * H * (2 * r + rd) * elt
+    return bound(2.0 * B * H * live * (2 * r + rd), nbytes, PEAK_BF16_FLOPS)
+
+
+def sdpa_mla(q_lat, q_pe, ckv, kpe, live: int, scale: float):
+    """The nearest single PyTorch call to mla_decode: one
+    ``scaled_dot_product_attention`` with a row's H heads as the query
+    sequence of one head, keys [ckv | kpe] (576 wide) and values ckv of the
+    live rows, no mask (the concatenation is made once, outside the call).
+    Returns (call, backend) for the first backend that takes it, trying
+    flash, memory-efficient, cuDNN, then the math backend."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q = torch.cat([q_lat, q_pe], dim=-1)[:, None]                  # (B, 1, H, 576)
+    k = torch.cat([ckv[:, :live], kpe[:, :live]], dim=-1)[:, None]  # (B, 1, live, 576)
+    v = ckv[:, None, :live]
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION,
+                    SDPBackend.CUDNN_ATTENTION, SDPBackend.MATH):
+        def call(backend=backend):
+            with sdpa_kernel([backend]):
+                return F.scaled_dot_product_attention(q, k, v, scale=scale)[:, 0]
+        try:
+            call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+        return call, backend.name
+    raise AssertionError("no SDPA backend computes the MLA decode call")
+
+
+MLA_DECODE_CASES = [  # B, H, L, kwargs of phase 8a's parity checks
+    (16, 128, 32768, {"kv_len": 32768}),             # deepseek-v2 serve shape, whole cache
+    (16, 128, 32768, {"kv_len": 20001}),             # ragged against the 32-row tile
+    (2, 64, 4096, {"kv_len": 37}),                   # kimi-k2's 64 heads
+    (1, 16, 4096, {"kv_len": 1, "splits": 8}),       # one live row: 7 of 8 splits empty
+    (2, 128, 4096, {"kv_len": 1001, "q_pos": 500}),  # q_pos < kv_len - 1
+    (1, 64, 2000, {"kv_len": 2000}),
+    (16, 16, 1000, {"kv_len": 999}),
+]
+
+
+def phase_mla_kernel(dev: torch.device, seed: int) -> dict:
+    """8a: mla_decode against its plain version, then its times."""
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.kernels.mla_decode import auto_splits, mla_decode, mla_decode_plain
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    scale = 1.0 / (128 + 64) ** 0.5
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, L, kw in MLA_DECODE_CASES:
+            ql, qp = (torch.randn(B, H, d, generator=gen, device=dev).to(dtype) for d in (512, 64))
+            ckv, kpe = (torch.randn(B, L, d, generator=gen, device=dev).to(dtype)
+                        for d in (512, 64))
+            out = mla_decode(ql, qp, ckv, kpe, scale=scale, **kw)
+            torch.cuda.synchronize()
+            ref = mla_decode_plain(ql, qp, ckv, kpe, scale=scale, **kw)
+            top = ref.float().abs().max().item()
+            rtol, atol = ((DECODE_BF16_RTOL, DECODE_BF16_ATOL * top)
+                          if dtype == torch.bfloat16 else (TOL[dtype], TOL[dtype]))
+            err = check_close(f"mla_decode {(B, H, L)} {kw} {dtype}", out, ref, rtol, atol)
+            worst = max(worst, err)
+            print(f"[8a] mla_decode B={B} H={H} L={L} {kw} {dtype} "
+                  f"({kw.get('splits') or auto_splits(B, H, min(L, kw['kv_len']), dev, dtype)} splits): "
+                  f"max abs err "
+                  f"{err:.3e} (rtol {rtol}, atol {atol:.2e}; max |out| {top:.3e})")
+            del ql, qp, ckv, kpe, out, ref
+    rows = []
+    for shape_name, B in (("decode_32k", 16), ("long_500k", INPUT_SHAPES["long_500k"].global_batch)):
+        L, H = INPUT_SHAPES[shape_name].seq_len, 128
+        live = L - 1
+        ql, qp = (torch.randn(B, H, d, generator=gen, device=dev).bfloat16() for d in (512, 64))
+        ckv, kpe = (torch.randn(B, L, d, generator=gen, device=dev).bfloat16() for d in (512, 64))
+        library, backend = sdpa_mla(ql, qp, ckv, kpe, live, scale)
+        b_ms, b_by = mla_bound(B, H, live, 2)
+        row = {"shape": f"{shape_name}: B={B} H={H} r=512 rd=64 L={L} kv_len={live} bf16, "
+                        f"{auto_splits(B, H, live, dev)} splits",
+               "ms": time_ms(lambda: mla_decode(ql, qp, ckv, kpe, scale=scale, kv_len=live)),
+               "plain_ms": time_ms(lambda: mla_decode_plain(ql, qp, ckv, kpe, scale=scale,
+                                                            kv_len=live), reps=5),
+               "library_ms": time_ms(library, reps=5), "library": f"SDPA, {backend} backend",
+               "bound_ms": b_ms, "bound_by": b_by}
+        print(f"[8a] mla_decode {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library ({row['library']}) {row['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        rows.append(row)
+        del ql, qp, ckv, kpe, library
+        free_card()
+    return {"worst": worst, "rows": rows}
+
+
+@contextlib.contextmanager
+def recorded_routes(no_drops: bool = False):
+    """Records the expert ids (T, k) of every MoE routing, in call order;
+    with ``no_drops`` the capacity factor is num_experts / top_k, so every
+    expert has a slot for every token and no pair drops."""
+    import dataclasses
+
+    from repro_torch.models import moe
+
+    route, capacity, calls = moe.route, moe.capacity, []
+
+    def recording(m, router_w, x_flat):
+        out = route(m, router_w, x_flat)
+        calls.append(out[1])
+        return out
+
+    def roomy(m, tokens):
+        return capacity(dataclasses.replace(m, capacity_factor=m.num_experts / m.top_k), tokens)
+
+    moe.route = recording
+    if no_drops:
+        moe.capacity = roomy
+    try:
+        yield calls
+    finally:
+        moe.route, moe.capacity = route, capacity
+
+
+def routing_flips(fwd_ids: list, dec_ids: list, layers: int, B: int, S: int) -> torch.Tensor:
+    """(B, S, layers) bool: whether a token's set of experts in a layer
+    differs between the forward (one routing of B·S tokens per layer) and
+    teacher-forced decode (one routing of B tokens per layer and step)."""
+    fwd = torch.stack([f.reshape(B, S, -1) for f in fwd_ids], dim=2)
+    dec = torch.stack([torch.stack(dec_ids[t * layers:(t + 1) * layers], dim=1)
+                       for t in range(S)], dim=1)
+    return (fwd.sort(dim=-1).values != dec.sort(dim=-1).values).any(dim=-1)
+
+
+def moe_layer_witness(model, tokens: torch.Tensor) -> dict:
+    """Each layer's one-token decode steps, fed the forward's own input to
+    that layer, against the layer's forward output, in the model's dtype and
+    with nothing dropped: ||decode - forward|| / ||layer increment|| over
+    the tokens whose routing in that layer matched, held at
+    LAYER_DECODE_BF16_TOL, and the share of tokens whose routing differed."""
+    from repro_torch.models.transformer import block_cache, block_decode
+
+    cfg, (B, S) = model.cfg, tokens.shape
+    gaps, flips = [], []
+    with torch.no_grad(), recorded_routes(no_drops=True) as calls:
+        x, positions = model.embed_inputs(tokens)
+        for seg in model.segments:
+            for block in getattr(model, seg.name):
+                first = len(calls)
+                y = block(x, positions)
+                y = y[0] if seg.kind == "moe" else y
+                cache = block_cache(cfg, seg.kind, B, S, model.device)
+                dec = torch.cat([block_decode(cfg, seg.kind, block, x[:, t:t + 1], cache, t)
+                                 for t in range(S)], dim=1)
+                flipped = (routing_flips(calls[first:first + 1], calls[first + 1:], 1, B, S)[..., 0]
+                           if seg.kind == "moe" else torch.zeros(B, S, dtype=torch.bool,
+                                                                 device=x.device))
+                keep = ~flipped
+                gaps.append(((dec - y)[keep].float().norm() / (y - x)[keep].float().norm()).item())
+                flips.append(flipped.float().mean().item())
+                x = y
+    print(f"[8c] {len(gaps)} layers in bf16, each fed the forward's input: ||dec - fwd|| / "
+          f"||increment|| over tokens whose routing matched {[f'{g:.2e}' for g in gaps]} (tol "
+          f"{LAYER_DECODE_BF16_TOL}); share of tokens whose routing differed "
+          f"{[round(f, 3) for f in flips]}")
+    if not all(np.isfinite(gaps)) or max(gaps) > LAYER_DECODE_BF16_TOL:
+        raise AssertionError(f"[8c] deepseek-v2 decode disagrees with the forward within a "
+                             f"layer: {gaps}")
+    return {"layer_gaps": gaps, "layer_flips": flips}
+
+
+def phase_mla_serve(dev: torch.device, seed: int) -> dict:
+    """8b-8e on deepseek-v2-236b at full width, cut in depth to fit the card."""
+    from repro_torch.config import INPUT_SHAPES, TuneConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import build_bank, make_score_fn
+    from repro_torch.data import make_tasks
+    from repro_torch.kernels.mla_decode import mla_decode
+    from repro_torch.kernels.score_ce import score_ce
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import Model
+    from repro_torch.models.moe import assign_slots, capacity
+
+    shape = INPUT_SHAPES["decode_32k"]
+    B, L = 16, shape.seq_len
+    full = get_config("deepseek-v2-236b")
+    m = full.mla
+    for moe_layers in (8, 7):                        # 7 only if 8 leave under 6 GiB free
+        cfg = full.with_overrides(num_layers=1 + moe_layers)
+        t0 = time.perf_counter()
+        model = Model(cfg, device=dev, seed=seed)
+        cache = model.init_cache(B, L)
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info(dev)[0] / 2 ** 30
+        if free >= 6.0 or moe_layers == 7:
+            break
+        print(f"[8b] {free:.1f} GiB free with 8 MoE layers and the cache: cutting to 7")
+        del model, cache
+        free_card()
+    n_layers = cfg.num_layers
+    params = sum(p.numel() * p.element_size() for p in model.parameters()) / 2 ** 30
+    cache_gib = sum(t.numel() * t.element_size() for seg in cache.values()
+                    for t in seg["kv"].values()) / 2 ** 30
+    print(f"[8b] {cfg.name}: {n_layers} of {full.num_layers} layers (1 dense + {moe_layers} MoE), "
+          f"d={cfg.d_model}, H={cfg.num_heads}, MLA r={m.kv_lora_rank} q_lora={m.q_lora_rank} "
+          f"nope/rope/v {m.qk_nope_head_dim}/{m.qk_rope_head_dim}/{m.v_head_dim}, "
+          f"{cfg.moe.num_experts} experts top-{cfg.moe.top_k} + {cfg.moe.num_shared_experts} "
+          f"shared of {cfg.moe.d_ff_expert}, V={cfg.vocab_size}, {cfg.dtype}; weights "
+          f"({params:.1f} GiB, the (V, d) output copy included) drawn on the card from seed "
+          f"{seed}; {shape.name} cache {cache_gib:.2f} GiB at batch {B} (batch "
+          f"{shape.global_batch}: {cache_gib * shape.global_batch / B:.1f} GiB); "
+          f"{free:.1f} GiB free; {time.perf_counter() - t0:.1f} s")
+
+    # (b) serve steps against a full decode_32k latent cache
+    gen = torch.Generator(device=dev).manual_seed(seed + 4)
+    filled = L - 8                                     # a fixture: seeded latents at 0..32759
+    for seg in cache.values():
+        kv = seg["kv"]
+        for i in range(kv["c_kv"].shape[0]):
+            kv["c_kv"][i, :, :filled].normal_(generator=gen)
+            kv["k_rope"][i, :, :filled].normal_(generator=gen)
+        kv["pos"][:, :, :filled] = torch.arange(filled, device=dev, dtype=torch.int32)
+    serve = make_serve_step(model)
+    V = cfg.vocab_size
+    tok = torch.randint(3, V, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_steps = L - filled
+    mla_decode.launches = 0
+    step_s = []
+    for i in range(n_steps):
+        t = time.perf_counter()
+        tok, cache = serve(cache, tok, filled + i)
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t)
+    launches = mla_decode.launches
+    if launches != n_layers * n_steps:
+        raise AssertionError(f"mla_decode launched {launches} times in {n_steps} serve steps, "
+                             f"not {n_layers} a step")
+    if not ((tok >= 0) & (tok < V)).all():
+        raise AssertionError("serve step produced tokens outside the vocabulary")
+    med = statistics.median(step_s[1:])
+    print(f"[8b] {n_steps} serve steps at cache_len {filled}..{L - 1}: "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms; median (steps 2..) {med * 1e3:.2f} ms "
+          f"per step, {B / med:.0f} tokens/s; mla_decode launches {launches} "
+          f"({launches // n_steps} per step)")
+    out = {"launches": launches, "step_ms": med * 1e3, "tokens_per_s": B / med,
+           "layers": n_layers, "free_gib": free}
+    out["profile"] = profile_calls("[8b] one serve step at batch 16, cache 32767",
+                                   lambda: serve(cache, tok, L - 1), warm=2, reps=5, traced=3)
+    del cache
+    free_card()
+
+    # (c) teacher-forced decode against the forward, bf16
+    S = 32
+    tokens = torch.randint(3, V, (2, S), generator=gen, device=dev)
+    moe_layers = n_layers - cfg.moe.first_dense_layers
+    with torch.no_grad(), recorded_routes() as calls:
+        model(tokens)
+    T = tokens.numel()
+    cap = capacity(cfg.moe, T)
+    dropped = sum(int((~assign_slots(ids, cfg.moe.num_experts, cap)[1]).sum()) for ids in calls)
+    print(f"[8c] forward of {T} tokens at capacity_factor {cfg.moe.capacity_factor} "
+          f"(capacity {cap}): {dropped} of {T * cfg.moe.top_k * moe_layers} (token, expert) "
+          f"pairs dropped over {moe_layers} MoE layers; a decode step routes 2 tokens "
+          f"(capacity {capacity(cfg.moe, 2)}) and drops none")
+    witness = moe_layer_witness(model, tokens)
+    with recorded_routes(no_drops=True) as calls:
+        dec, fwd = teacher_forced_logits(model, tokens)
+    flips = routing_flips(calls[:moe_layers], calls[moe_layers:], moe_layers, 2, S)
+    clean = ~flips.any(dim=-1)                       # (B, S): no flipped routing in any layer
+    flip_share, clean_share = flips.float().mean().item(), clean.float().mean().item()
+    rel_all = rel_gap(dec, fwd)
+    rel_clean = rel_gap(dec[clean], fwd[clean]) if clean.any() else float("inf")
+    agree = (dec.argmax(-1) == fwd.argmax(-1)).float().mean().item()
+    print(f"[8c] teacher-forced decode of {S} tokens x 2 rows in bf16 against the forward, "
+          f"capacity_factor {cfg.moe.num_experts}/{cfg.moe.top_k} (no drops): routings whose "
+          f"expert set differs {flip_share:.4f} of {flips.numel()} (token, layer) (at most "
+          f"{MAX_FLIP_SHARE}); tokens with none {clean_share:.3f} (at least {MIN_CLEAN_TOKENS}); "
+          f"||dec - fwd|| / ||fwd|| over those tokens {rel_clean:.3e} (tol "
+          f"{DECODE_REL_TOL[torch.bfloat16]}), over all {rel_all:.3e}; argmax agreement "
+          f"{agree:.3f}")
+    if (not torch.isfinite(dec).all() or flip_share > MAX_FLIP_SHARE
+            or clean_share < MIN_CLEAN_TOKENS
+            or not rel_clean <= DECODE_REL_TOL[torch.bfloat16]):
+        raise AssertionError("[8c] deepseek-v2 decode disagrees with the forward pass")
+    out.update(decode_rel=rel_clean, decode_rel_all=rel_all, flip_share=flip_share,
+               clean_share=clean_share, dropped=dropped, witness=witness)
+
+    # (e) one Eqn-1 Prompt Bank lookup on the cut
+    tune_cfg = TuneConfig(prompt_len=16)
+    tasks = make_tasks(vocab=32, partitions=2)         # 12 families x 2 = 24 tasks
+    rng = np.random.default_rng(seed)
+    seed_prompts = {t.task_id: rng.normal(0, 0.5 / np.sqrt(cfg.d_model),
+                                          (tune_cfg.prompt_len, cfg.d_model)).astype(np.float32)
+                    for t in tasks}
+    score_ce.launches = 0
+    t0 = time.perf_counter()
+    bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
+    torch.cuda.synchronize()
+    bank_s = time.perf_counter() - t0
+    if len(bank.entries) != 48 or len(bank.medoid_ids) != 12:
+        raise AssertionError("bank does not hold 48 candidates in 12 clusters")
+    score_fn = make_score_fn(model, tasks[7], tune_cfg)
+    positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
+    res = bank.lookup(score_fn)
+    if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
+        raise AssertionError(f"lookup for {tasks[7].task_id} gave {res}")
+    print(f"[8e] bank of {len(bank.entries)} candidates in {len(bank.medoid_ids)} clusters "
+          f"(features + clustering {bank_s:.3f} s); request "
+          f"{tasks[7].task_id} ({positions} positions): origin={res.entry.origin} "
+          f"score={res.score:.6f} evaluations={res.evaluations} latency={res.latency_s:.3f} s; "
+          f"score_ce launches {score_ce.launches} (V={V}, untied)")
+    if score_ce.launches <= 0:
+        raise AssertionError("score_ce was never launched on the deepseek-v2 lookup")
+    out.update(lookup_s=res.latency_s, lookup_evals=res.evaluations,
+               score_ce_launches=score_ce.launches)
+
+    # (d) a 2-layer cut of the same weights in f32, card against CPU
+    state = cut_state(model, 2)
+    del model, serve, bank, score_fn             # every holder of the 9-layer model
+    free_card()
+    card, cpu = depth_cut(state, dev)
+    del state
+    tokens = torch.randint(3, V, (2, 4), generator=gen, device=dev)
+    cc, gcache = cpu.init_cache(2, 8), card.init_cache(2, 8)
+    worst = 0.0
+    for t in range(tokens.shape[1]):
+        lg, _ = card.decode_step(gcache, tokens[:, t:t + 1], t)
+        lc, _ = cpu.decode_step(cc, tokens[:, t:t + 1].cpu(), t)
+        worst = max(worst, check_close(f"[8d] decode step {t}, card f32 against CPU f32",
+                                       lg.cpu(), lc, F32_LOGIT_TOL))
+    print(f"[8d] 2-layer f32 cut (dense0 + 1 MoE layer): 4 decode steps, card (kernels) "
+          f"against CPU (plain versions): max abs logit diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    del card, cpu
+    free_card()
+    return out
+
+
+def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
+                 mla: dict, mla_serve: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the shape of the path that launches it, and that path's launch count."""
     replaces = {"score_ce": "src/repro/kernels/score_ce.py:101",
                 "flash_attention": "src/repro/kernels/flash_attention.py:109",
                 "flash_decode": "src/repro/kernels/flash_decode.py:157",
-                "rwkv6_wkv": "src/repro/kernels/rwkv_wkv.py:94"}
+                "rwkv6_wkv": "src/repro/kernels/rwkv_wkv.py:94",
+                "mla_decode": "src/repro/kernels/mla_decode.py:133"}
     sources = {"score_ce": "score_ce", "flash_attention": "flash_attention",
-               "flash_decode": "flash_decode", "rwkv6_wkv": "rwkv_wkv"}
+               "flash_decode": "flash_decode", "rwkv6_wkv": "rwkv_wkv",
+               "mla_decode": "mla_decode"}
+    worst = {**worst, "mla_decode": mla["worst"]}
     paths = {  # name -> (row at the path's shape, launches on the path, longer shape)
         "score_ce": (rows["score_ce"][0], launches["score_ce"], rows["score_ce"][1]),
         "flash_attention": (rows["flash_attention"][0], launches["flash_attention"],
                             rows["flash_attention"][1]),
         "flash_decode": (serve, serve["launches"], None),
         "rwkv6_wkv": (rwkv["rows"][0], rwkv["launches"]["rwkv6_wkv"], rwkv["rows"][1]),
+        "mla_decode": (mla["rows"][0], mla_serve["launches"], mla["rows"][1]),
     }
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{sources[name]}.cu",
@@ -819,8 +1213,10 @@ def main() -> None:
     free_card()
     serve = phase_serve(dev, args.seed)
     rwkv = phase_rwkv(dev, args.seed)
+    mla = phase_mla_kernel(dev, args.seed)
+    mla_serve = phase_mla_serve(dev, args.seed)
 
-    kernels = kernel_lines(worst, rows, launches, serve, rwkv)
+    kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,10 +1,12 @@
 """PyTorch / CUDA port of the PromptTuner system for NVIDIA Hopper (sm_90a).
 
 This package sits beside ``repro`` (the JAX reference) and imports nothing of
-it. The slice ported so far is the Prompt Bank's lookup path: the dense GQA
-decoder's forward pass, Eqn 1's scoring, activation features and the bank.
-Its two kernels, ``score_ce`` and ``flash_attention``, are CUDA C++ under
-``kernels/csrc`` and are built for ``sm_90a`` at first use.
+it. Ported so far: the Prompt Bank's lookup path (the model's forward pass,
+Eqn 1's scoring, activation features and the bank) and the decode serve
+step, for dense GQA decoders, the RWKV6 family and the MLA + MoE family.
+Its five kernels, ``score_ce``, ``flash_attention``, ``flash_decode``,
+``rwkv6_wkv`` and ``mla_decode``, are CUDA C++ under ``kernels/csrc`` and
+are built for ``sm_90a`` at first use.
 
 Entry points run on ``cuda`` unless the caller passes ``device="cpu"``.
 """

@@ -1,5 +1,5 @@
-"""Configurations of the models the port runs so far: dense GQA decoders
-and the RWKV6 family.
+"""Configurations of the models the port runs so far: dense GQA decoders,
+the RWKV6 family and the MLA + MoE family.
 
 ``get_config(arch)`` returns the full configuration, ``smoke_config(arch)``
 the reduced variant the CPU tests use (2 layers, d_model 256), and
@@ -13,12 +13,16 @@ import dataclasses
 from typing import Callable, Dict
 
 from repro_torch.config import ModelConfig
+from repro_torch.configs.deepseek_v2_236b import deepseek_v2_236b
 from repro_torch.configs.gpt2_base import gpt2_base
+from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
+    "deepseek-v2-236b": deepseek_v2_236b,
     "gpt2-base": gpt2_base,
+    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
     "qwen2-7b": qwen2_7b,
     "rwkv6-7b": rwkv6_7b,
 }
@@ -31,10 +35,13 @@ def get_config(arch: str) -> ModelConfig:
 
 
 def smoke_config(arch: str) -> ModelConfig:
-    """Reduced same-family variant: 2 layers, d_model 256, f32; an SSM
-    gets state 32, chunk 16 and (RWKV: d_model / state) 8 heads.
+    """Reduced same-family variant: 2 layers, d_model 256, f32. A MoE model
+    gets 3 layers (1 dense + 2 MoE), 4 experts, top-2, at most 1 shared
+    expert of width 128; MLA gets ranks (kv 64, q 48) and head dims (nope
+    32, rope 16, v 32); an SSM gets state 32, chunk 16 and (RWKV: d_model /
+    state) 8 heads.
 
-    The reduction rules for MoE, hybrid, encoder-decoder and MLA come with
+    The reduction rules for hybrid and encoder-decoder models come with
     those families."""
     cfg = get_config(arch)
     kw: dict = dict(
@@ -50,10 +57,20 @@ def smoke_config(arch: str) -> ModelConfig:
         param_dtype="float32",
         remat=False,
     )
+    if cfg.moe is not None:
+        kw["moe"] = dataclasses.replace(
+            cfg.moe, num_experts=4, top_k=2,
+            num_shared_experts=min(cfg.moe.num_shared_experts, 1), d_ff_expert=128,
+            first_dense_layers=min(cfg.moe.first_dense_layers, 1))
+        kw["num_layers"] = 3                                  # 1 dense + 2 MoE
     if cfg.ssm is not None:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, state_size=32, num_heads=0, chunk_size=16, expand=2)
         kw["num_heads"] = 8 if cfg.arch_type == "ssm" else 4   # rwkv: d / state
+    if cfg.mla is not None:
+        kw["mla"] = dataclasses.replace(
+            cfg.mla, kv_lora_rank=64, q_lora_rank=48, qk_nope_head_dim=32,
+            qk_rope_head_dim=16, v_head_dim=32)
     return cfg.with_overrides(**kw)
 
 

@@ -23,8 +23,9 @@
 // in registers. After the walk the block's row slots are merged in shared
 // memory into one normalised partial output and its log-sum-exp per head,
 // as the TPU kernel emits them: an empty partition gets lse = -1e30. The
-// combine kernel then weights each partition by exp(lse - max lse), a
-// -1e30 lse by exactly 0, and writes the output in q's dtype.
+// combine kernel (decode_combine.cuh, shared with mla_decode.cu) then
+// weights each partition by exp(lse - max lse), a -1e30 lse by exactly 0,
+// and writes the output in q's dtype.
 //
 // Unlike the TPU kernel nothing is padded: G is not rounded up to 8 rows
 // and L not to 128; the ragged edge is masked here. Scores, softmax sums
@@ -34,22 +35,15 @@
 #include <cuda_runtime.h>
 #include <math.h>
 
+#include "decode_combine.cuh"
+#include "warp_tile.cuh"
+
+using namespace repro_torch;
+
 namespace {
 
 constexpr int kWarps = 4;
 constexpr int kThreads = 32 * kWarps;
-constexpr float kNegInf = -1e30f;   // masking constant of the TPU kernel
-
-template <typename T> __device__ __forceinline__ float to_f32(T x);
-template <> __device__ __forceinline__ float to_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ float to_f32<__nv_bfloat16>(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
-template <typename T> __device__ __forceinline__ T from_f32(float x);
-template <> __device__ __forceinline__ float from_f32<float>(float x) { return x; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // The 16 bytes a lane loads, widened to f32.
 template <typename T, int VEC>
@@ -188,25 +182,6 @@ flash_decode_partial(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
-// One block per (batch row, head), one thread per output element.
-template <typename T, int HD>
-__global__ void __launch_bounds__(HD)
-flash_decode_combine(const float* __restrict__ o_part, const float* __restrict__ lse_part,
-                     T* __restrict__ out, int splits) {
-  const long long bh = blockIdx.x;
-  const int d = threadIdx.x;
-  const float* lse = lse_part + bh * splits;
-  float M = kNegInf;
-  for (int s = 0; s < splits; ++s) M = fmaxf(M, lse[s]);
-  float den = 0.f, o = 0.f;
-  for (int s = 0; s < splits; ++s) {
-    const float w = lse[s] > 0.5f * kNegInf ? expf(lse[s] - M) : 0.f;
-    den += w;
-    o = fmaf(o_part[(bh * splits + s) * HD + d], w, o);
-  }
-  out[bh * HD + d] = from_f32<T>(o / fmaxf(den, 1e-30f));
-}
-
 template <typename T, int HD, int GT>
 int launch(const void* q, const void* k, const void* v, float* o_part, float* lse,
            void* out, const long long* st, int B, int H, int Hkv, int lo, int hi, int per,
@@ -219,8 +194,7 @@ int launch(const void* q, const void* k, const void* v, float* o_part, float* ls
       per, splits, scale);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  flash_decode_combine<T, HD><<<B * H, HD, 0, stream>>>(o_part, lse, static_cast<T*>(out),
-                                                        splits);
+  decode_combine<T, HD><<<B * H, HD, 0, stream>>>(o_part, lse, static_cast<T*>(out), splits);
   return (int)cudaGetLastError();
 }
 

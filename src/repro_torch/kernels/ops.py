@@ -14,6 +14,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.mla_decode import mla_decode
 from repro_torch.kernels.rwkv_wkv import rwkv6_wkv
 from repro_torch.kernels.score_ce import score_ce
 
@@ -69,6 +70,25 @@ def gqa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             f"({MAX_HEAD_DIM})")
     out = flash_decode(q, k.transpose(1, 2), v.transpose(1, 2), kv_len=int(kv_len),
                        q_pos=int(q_pos), window=window, splits=splits)
+    return out[:, None] if squeeze else out
+
+
+def mla_flash_decode(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
+                     kpe: torch.Tensor, *, scale: float, kv_len: Optional[int] = None,
+                     q_pos: Optional[int] = None, splits: Optional[int] = None) -> torch.Tensor:
+    """Absorbed-MLA decode adapter: q_lat (B, 1, H, r) or (B, H, r), q_pe
+    likewise with rd, ckv (B, L, r), kpe (B, L, rd) -> the latent output in
+    the rank of q_lat. ``scale`` is 1/sqrt(qk_nope_head_dim +
+    qk_rope_head_dim), the head dim before absorption. The reference's
+    ``bk`` (its TPU tile) has no counterpart: the CUDA kernel's tile is
+    fixed, and ``splits`` None lets the wrapper size the grid to the card."""
+    squeeze = q_lat.dim() == 4
+    if squeeze:
+        if q_lat.shape[1] != 1:
+            raise ValueError(f"mla_flash_decode: decode takes one query token, got {q_lat.shape[1]}")
+        q_lat, q_pe = q_lat[:, 0], q_pe[:, 0]
+    out = mla_decode(q_lat, q_pe, ckv, kpe, scale=float(scale), kv_len=kv_len, q_pos=q_pos,
+                     splits=splits)
     return out[:, None] if squeeze else out
 
 

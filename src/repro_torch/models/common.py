@@ -1,7 +1,8 @@
 """Norms, rotary embedding, FFN, token embedding and unembedding.
 
 Plain functions on tensors, each the counterpart of the function of the
-same name in the reference's ``models/common.py``, with its numerics:
+same name in the reference's ``models/common.py``, and the ``Norm`` and
+``FFN`` modules that hold their parameters, with the reference's numerics:
 norms and rotary angles in f32, the result cast back to the input dtype,
 and GELU in its tanh form (``jax.nn.gelu``'s default).
 """
@@ -11,6 +12,7 @@ from typing import Optional
 
 import torch
 import torch.nn.functional as F
+from torch import nn
 
 from repro_torch.config import ModelConfig
 
@@ -35,6 +37,22 @@ def apply_norm(cfg: ModelConfig, gamma: torch.Tensor, beta: Optional[torch.Tenso
     if cfg.norm == "layernorm":
         return layer_norm(x, gamma, beta)
     return rms_norm(x, gamma)
+
+
+class Norm(nn.Module):
+    """LayerNorm (gamma, beta) or RMSNorm (gamma); parameters always f32."""
+
+    def __init__(self, cfg: ModelConfig, d: int, *, device: torch.device):
+        super().__init__()
+        self.cfg = cfg
+        self.gamma = nn.Parameter(torch.ones(d, device=device, dtype=torch.float32))
+        if cfg.norm == "layernorm":
+            self.beta = nn.Parameter(torch.zeros(d, device=device, dtype=torch.float32))
+        else:
+            self.register_parameter("beta", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_norm(self.cfg, self.gamma, self.beta, x)
 
 
 def rope_frequencies(head_dim: int, theta: float, device: torch.device) -> torch.Tensor:
@@ -63,6 +81,26 @@ def apply_ffn(cfg: ModelConfig, w_up: torch.Tensor, w_down: torch.Tensor,
     else:
         act = F.gelu(up, approximate="tanh")
     return act @ w_down
+
+
+class FFN(nn.Module):
+    """A dense feed-forward of width ``d_ff`` (the config's by default)."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
+                 d_ff: int = 0):
+        super().__init__()
+        self.cfg = cfg
+        d_ff = d_ff or cfg.d_ff
+        kw = dict(device=device, dtype=dtype)
+        self.w_up = nn.Parameter(torch.empty(cfg.d_model, d_ff, **kw))
+        self.w_down = nn.Parameter(torch.empty(d_ff, cfg.d_model, **kw))
+        if cfg.activation == "swiglu":
+            self.w_gate = nn.Parameter(torch.empty(cfg.d_model, d_ff, **kw))
+        else:
+            self.register_parameter("w_gate", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return apply_ffn(self.cfg, self.w_up, self.w_down, self.w_gate, x)
 
 
 def embed_tokens(embedding: torch.Tensor, tokens: torch.Tensor,

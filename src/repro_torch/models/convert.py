@@ -2,8 +2,8 @@
 checkpoints, read with numpy alone.
 
 The reference stacks each segment's per-layer parameters on a leading axis
-(``blocks/attn/wq`` is (L, d, H, hd)); the port keeps one module per layer
-(``blocks.<i>.attn.wq`` is (d, H, hd)). Conversion slices the layer axis and
+(``blocks/attn/wq`` is (L, d, H, hd), ``moe/moe/w_gate`` (L, E, d, dff));
+the port keeps one module per layer (``blocks.<i>.attn.wq`` is (d, H, hd)). Conversion slices the layer axis and
 transposes nothing: both packages use the same layouts.
 """
 from __future__ import annotations
@@ -13,7 +13,7 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-STACKED = ("blocks",)          # segments whose parameters carry a layer axis
+STACKED = ("blocks", "dense0", "moe")   # segments whose parameters carry a layer axis
 
 
 def _flatten(tree, prefix: str = "") -> Dict[str, Any]:

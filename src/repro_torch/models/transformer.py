@@ -1,16 +1,24 @@
-"""The decoder: embedding, a stack of pre-norm blocks, final norm; its
+"""The decoder: embedding, segments of pre-norm blocks, final norm; its
 full-sequence forward and its one-token decode step against a cache.
 
-Counterpart of the reference's ``Model`` for the dense GQA decoders
-(``arch_type="dense"``) and the RWKV6 family (``arch_type="ssm"``, ``ssm.kind
-="rwkv6"``), whose blocks form the one segment ``blocks``. The reference
-stacks each layer's parameters on a leading axis and runs the stack with
-``jax.lax.scan``; here the stack is an ``nn.ModuleList`` and a Python loop.
-Parameter names follow the reference tree (``blocks.<i>.attn.wq`` for
-``blocks/attn/wq[i]``), so ``models.convert`` loads a JAX checkpoint with no
-transposes. The decode cache keeps the reference's tree, one tensor per leaf
-with the layer axis first (``cache["blocks"]["kv"]["k"]`` is
-(layers, B, L, Hkv, hd)), and is updated in place.
+Counterpart of the reference's ``Model`` for the dense decoders
+(``arch_type="dense"``), the RWKV6 family (``arch_type="ssm"``, ``ssm.kind=
+"rwkv6"``) and the MoE family (``arch_type="moe"``), with GQA or MLA
+attention. As in the reference's ``plan_segments``, a dense or RWKV6 model
+is the one segment ``blocks``, and a MoE model the segments ``dense0`` (its
+first dense layers, FFN width ``d_ff_expert·(top_k + shared)``) and ``moe``.
+Not ported yet: Mamba2 and the Zamba2 hybrid, the encoder-decoder
+(``audio``) and VLM families, and the MoE expert-parallel dispatch.
+
+The reference stacks each segment's per-layer parameters on a leading axis
+and runs the stack with ``jax.lax.scan``; here each segment is an
+``nn.ModuleList`` of that name and a Python loop. Parameter names follow the
+reference tree (``blocks.<i>.attn.wq`` for ``blocks/attn/wq[i]``,
+``moe.<i>.moe.w_gate`` for ``moe/moe/w_gate[i]``), so ``models.convert``
+loads a JAX checkpoint with no transposes. The decode cache keeps the
+reference's tree, one tensor per leaf with the layer axis first
+(``cache["blocks"]["kv"]["k"]`` is (layers, B, L, Hkv, hd),
+``cache["moe"]["kv"]["c_kv"]`` (layers, B, L, r)), and is updated in place.
 
 Like the reference, ``gpt2-base`` uses RoPE, not GPT-2's learned position
 table: the port follows the JAX package, not GPT-2.
@@ -18,55 +26,78 @@ table: the port follows the JAX package, not GPT-2.
 from __future__ import annotations
 
 import math
-from typing import Callable, Dict, Optional, Tuple
+from dataclasses import dataclass
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import torch
 from torch import nn
 
 from repro_torch import DeviceLike, resolve_device, torch_dtype
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import GQAAttention, gqa_decode, gqa_forward, gqa_init_cache
-from repro_torch.models.common import apply_ffn, apply_norm, embed_tokens, unembed
+from repro_torch.models.attention import (GQAAttention, MLAAttention, gqa_decode, gqa_forward,
+                                          gqa_init_cache, mla_decode, mla_forward,
+                                          mla_init_cache)
+from repro_torch.models.common import FFN, Norm, embed_tokens, unembed
+from repro_torch.models.moe import MoE, moe_ffn
 from repro_torch.models.ssm import (RWKV6TimeMix, rwkv6_decode, rwkv6_forward,
                                     rwkv6_init_state)
 
 # init kinds of the reference's ParamSpecs (models/common.py) for the leaves
 # that are not drawn at 1/sqrt(fan_in)
-SMALL = ("mu_x", "mu_rkvwg", "tm_w1", "tm_w2", "decay_w1", "decay_w2", "u")   # std 0.02
+SMALL = ("mu_x", "mu_rkvwg", "tm_w1", "tm_w2", "decay_w1", "decay_w2", "u",
+         "router")                                                  # std 0.02
 ONES = ("gamma", "ln_out")
 ZEROS = ("beta", "bq", "bk", "bv")
+EXPERT_STACKS = ("w_gate", "w_up", "w_down")   # (E, in, out) under a MoE layer
 
 
-class Norm(nn.Module):
-    """LayerNorm (gamma, beta) or RMSNorm (gamma); parameters always f32."""
-
-    def __init__(self, cfg: ModelConfig, d: int, *, device: torch.device):
-        super().__init__()
-        self.cfg = cfg
-        self.gamma = nn.Parameter(torch.ones(d, device=device, dtype=torch.float32))
-        if cfg.norm == "layernorm":
-            self.beta = nn.Parameter(torch.zeros(d, device=device, dtype=torch.float32))
-        else:
-            self.register_parameter("beta", None)
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_norm(self.cfg, self.gamma, self.beta, x)
+@dataclass(frozen=True)
+class Segment:
+    kind: str          # dense | moe | rwkv
+    count: int
+    name: str
 
 
-class FFN(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
-        super().__init__()
-        self.cfg = cfg
-        kw = dict(device=device, dtype=dtype)
-        self.w_up = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff, **kw))
-        self.w_down = nn.Parameter(torch.empty(cfg.d_ff, cfg.d_model, **kw))
-        if cfg.activation == "swiglu":
-            self.w_gate = nn.Parameter(torch.empty(cfg.d_model, cfg.d_ff, **kw))
-        else:
-            self.register_parameter("w_gate", None)
+def plan_segments(cfg: ModelConfig) -> List[Segment]:
+    """The model's segments, as the reference's ``plan_segments`` names
+    them; families not ported yet raise, naming the slice that brings them."""
+    L, at = cfg.num_layers, cfg.arch_type
+    if cfg.frontend.kind == "none" and cfg.attention in ("gqa", "mla"):
+        if at == "dense":
+            return [Segment("dense", L, "blocks")]
+        if at == "moe" and cfg.moe is not None:
+            fd = cfg.moe.first_dense_layers
+            return ([Segment("dense", fd, "dense0")] if fd else []) + [
+                Segment("moe", L - fd, "moe")]
+    if at == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
+        return [Segment("rwkv", L, "blocks")]
+    later = {"ssm": "the Mamba2 slice", "hybrid": "the hybrid (Mamba2 + attention) slice",
+             "audio": "the encoder-decoder slice", "vlm": "the VLM slice"}
+    raise NotImplementedError(
+        f"{cfg.name}: arch_type={cfg.arch_type!r}, attention={cfg.attention!r}, frontend="
+        f"{cfg.frontend.kind!r} is not ported yet; it comes with "
+        f"{later.get(at, 'a later slice')}, after training and the cluster layer (the port "
+        "runs dense and MoE decoders with GQA or MLA attention, and the RWKV6 family)")
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return apply_ffn(self.cfg, self.w_up, self.w_down, self.w_gate, x)
+
+def dense_ffn_width(cfg: ModelConfig) -> int:
+    """FFN width of a dense block: ``d_ff``, or in a MoE model's first dense
+    layers ``d_ff_expert·(top_k + num_shared_experts)``."""
+    m = cfg.moe
+    return cfg.d_ff if m is None else m.d_ff_expert * (m.top_k + m.num_shared_experts)
+
+
+def make_attention(cfg: ModelConfig, device: torch.device, dtype: torch.dtype
+                   ) -> Union[GQAAttention, MLAAttention]:
+    cls = MLAAttention if cfg.attention == "mla" else GQAAttention
+    return cls(cfg, device=device, dtype=dtype)
+
+
+def attn_forward(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
+                 positions: torch.Tensor) -> torch.Tensor:
+    if cfg.attention == "mla":
+        return mla_forward(cfg, p, x, positions)
+    return gqa_forward(cfg, p, x, positions)
 
 
 class DenseBlock(nn.Module):
@@ -74,17 +105,36 @@ class DenseBlock(nn.Module):
         super().__init__()
         self.cfg = cfg
         self.ln1 = Norm(cfg, cfg.d_model, device=device)
-        self.attn = GQAAttention(cfg, device=device, dtype=dtype)
+        self.attn = make_attention(cfg, device, dtype)
         self.ln2 = Norm(cfg, cfg.d_model, device=device)
-        self.ffn = FFN(cfg, device=device, dtype=dtype)
+        self.ffn = FFN(cfg, device=device, dtype=dtype, d_ff=dense_ffn_width(cfg))
 
     def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
         cfg = self.cfg
         if cfg.parallel_block:
             h = self.ln1(x)
-            return x + gqa_forward(cfg, self.attn, h, positions) + self.ffn(h)
-        x = x + gqa_forward(cfg, self.attn, self.ln1(x), positions)
+            return x + attn_forward(cfg, self.attn, h, positions) + self.ffn(h)
+        x = x + attn_forward(cfg, self.attn, self.ln1(x), positions)
         return x + self.ffn(self.ln2(x))
+
+
+class MoEBlock(nn.Module):
+    """Attention, then the routed experts; ``forward`` also returns the
+    layer's router aux loss."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = Norm(cfg, cfg.d_model, device=device)
+        self.attn = make_attention(cfg, device, dtype)
+        self.ln2 = Norm(cfg, cfg.d_model, device=device)
+        self.moe = MoE(cfg, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        x = x + attn_forward(self.cfg, self.attn, self.ln1(x), positions)
+        y, aux = moe_ffn(self.cfg, self.moe, self.ln2(x))
+        return x + y, aux
 
 
 class RWKVBlock(nn.Module):
@@ -102,52 +152,39 @@ class RWKVBlock(nn.Module):
         return x + self.ffn(self.ln2(x))
 
 
-BLOCKS = {"dense": DenseBlock, "rwkv": RWKVBlock}
-
-
-def block_kind(cfg: ModelConfig) -> str:
-    """The block of the model's one segment, as the reference's
-    ``plan_segments`` names it; families not ported yet raise."""
-    if cfg.frontend.kind != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: modality frontends (VLM, audio) are not ported yet; they come "
-            "after the MLA/MoE slice, training and the cluster layer")
-    if cfg.arch_type == "dense" and cfg.attention == "gqa":
-        return "dense"
-    if cfg.arch_type == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
-        return "rwkv"
-    later = {"moe": "the MLA/MoE slice, next", "ssm": "the Mamba2 slice",
-             "hybrid": "the hybrid (Mamba2 + attention) slice",
-             "audio": "the encoder-decoder slice", "vlm": "the VLM slice"}
-    raise NotImplementedError(
-        f"{cfg.name}: arch_type={cfg.arch_type!r}, attention={cfg.attention!r} is not "
-        f"ported yet; it comes with {later.get(cfg.arch_type, 'a later slice')} (the port "
-        "runs dense GQA decoders and the RWKV6 family)")
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "rwkv": RWKVBlock}
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
                 device: torch.device) -> Dict:
-    """One layer's empty decode cache. A sliding-window attention buffer
-    holds ``min(length, window)`` slots."""
-    if kind == "dense":
-        L = min(length, cfg.sliding_window) if cfg.sliding_window else length
-        return {"kv": gqa_init_cache(cfg, batch, L, torch_dtype(cfg.dtype), device)}
-    return {"state": rwkv6_init_state(cfg, batch, device)}
+    """One layer's empty decode cache. A sliding-window GQA buffer holds
+    ``min(length, window)`` slots; an MLA latent cache always ``length``."""
+    if kind == "rwkv":
+        return {"state": rwkv6_init_state(cfg, batch, device)}
+    dt = torch_dtype(cfg.dtype)
+    if cfg.attention == "mla":
+        return {"kv": mla_init_cache(cfg, batch, length, dt, device)}
+    L = min(length, cfg.sliding_window) if cfg.sliding_window else length
+    return {"kv": gqa_init_cache(cfg, batch, L, dt, device)}
 
 
 def block_decode(cfg: ModelConfig, kind: str, block: nn.Module, x: torch.Tensor,
                  cache: Dict, cache_len: int) -> torch.Tensor:
     """One-token step of one layer; writes the layer's ``cache`` in place."""
     h = block.ln1(x)
-    if kind == "dense":
-        y, _ = gqa_decode(cfg, block.attn, h, cache["kv"], cache_len)
-        if cfg.parallel_block:
-            return x + y + block.ffn(h)
-    else:
+    if kind == "rwkv":
         y, st = rwkv6_decode(cfg, block.tmix, h, cache["state"])
         for name, t in st.items():
             cache["state"][name].copy_(t)
+        x = x + y
+        return x + block.ffn(block.ln2(x))
+    decode = mla_decode if cfg.attention == "mla" else gqa_decode
+    y, _ = decode(cfg, block.attn, h, cache["kv"], cache_len)
+    if kind == "dense" and cfg.parallel_block:
+        return x + y + block.ffn(h)
     x = x + y
+    if kind == "moe":
+        return x + moe_ffn(cfg, block.moe, block.ln2(x))[0]
     return x + block.ffn(block.ln2(x))
 
 
@@ -156,14 +193,17 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Dict) -> Dict:
 
 
 class Model(nn.Module):
-    """Dense GQA decoder or RWKV6 model on ``device`` (``cuda`` unless the
-    caller passes ``device="cpu"``), its weights drawn from ``seed``, or
-    left uninitialised for a caller that loads them when ``seed`` is None."""
+    """Dense or MoE decoder (GQA or MLA attention) or RWKV6 model on
+    ``device`` (``cuda`` unless the caller passes ``device="cpu"``), its
+    weights drawn from ``seed``, or left uninitialised for a caller that
+    loads them when ``seed`` is None. Each of ``segments`` is an
+    ``nn.ModuleList`` attribute of its name (``blocks``, or ``dense0`` and
+    ``moe``)."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  seed: Optional[int] = 0):
         super().__init__()
-        self.kind = block_kind(cfg)
+        self.segments = plan_segments(cfg)
         dev = resolve_device(device)
         self.cfg = cfg
         self.dtype = torch_dtype(cfg.dtype)
@@ -180,9 +220,9 @@ class Model(nn.Module):
         self.register_buffer("unembed_t", None, persistent=False)
         self._unembed_version = -1
         self.final_norm = Norm(cfg, d, device=dev)
-        block = BLOCKS[self.kind]
-        self.blocks = nn.ModuleList(
-            block(cfg, device=dev, dtype=pdt) for _ in range(cfg.num_layers))
+        for seg in self.segments:
+            setattr(self, seg.name, nn.ModuleList(
+                BLOCKS[seg.kind](cfg, device=dev, dtype=pdt) for _ in range(seg.count)))
         if seed is not None:
             self.init_weights(seed)
 
@@ -220,13 +260,16 @@ class Model(nn.Module):
     def init_weights(self, seed: int) -> None:
         """Random weights: norms and ``ln_out`` 1, LayerNorm betas and biases
         0, embeddings N(0, 0.02²), the reference's "small" leaves (RWKV6's
-        token-shift mixes, its LoRAs and ``u``) N(0, 0.02²), ``w0`` the
-        reference's decay init (a linspace from -6 to -1 over all layers'
-        ``w0`` in layer order), and every other matrix N(0, 1/fan_in) with
-        fan_in the dims it contracts (d for wq/wk/wv/wr/wg, H·hd for wo). The
-        reference takes the second-to-last dim, which for wq is H: its
-        attention scores then have a std near 64 and 12 such layers amplify
-        rounding. Drawn on the model's device by a generator of that device
+        token-shift mixes, its LoRAs and ``u``; the MoE router, kept f32)
+        N(0, 0.02²), ``w0`` the reference's decay init (a linspace from -6 to
+        -1 over all layers' ``w0`` in layer order), and every other matrix
+        N(0, 1/fan_in) with fan_in the dims it contracts: d for
+        wq/wk/wv/wr/wg, H·hd for wo, the first dim for the MLA projections,
+        and for the (E, in, out) expert stacks ``in`` (d, or d_ff_expert for
+        ``w_down``), not E. The reference takes the second-to-last dim, which
+        for wq is H: its attention scores then have a std near 64 and 12
+        such layers amplify rounding. An expert stack is drawn one expert at
+        a time, so no (E, d, dff) f32 temporary is made. Drawn on the model's device by a generator of that device
         seeded with ``seed``: a seed gives the same weights on every run on
         one kind of device (to compare devices, copy the weights with
         ``load_state_dict``), and a 7B model is drawn on the card in seconds
@@ -240,13 +283,17 @@ class Model(nn.Module):
                 p.zero_()
             elif leaf == "w0":
                 continue
+            elif leaf in EXPERT_STACKS and p.dim() == 3:
+                for e in range(p.shape[0]):
+                    p[e].copy_(torch.randn(p.shape[1:], generator=gen, device=p.device)
+                               .mul_(1.0 / math.sqrt(p.shape[1])))
             else:
                 if leaf in SMALL or leaf in ("embedding", "unembed"):
                     std = 0.02
                 else:
                     std = 1.0 / math.sqrt(p.shape[0] * (p.shape[1] if leaf == "wo" else 1))
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device).mul_(std))
-        if self.kind == "rwkv":
+        if self.segments[0].kind == "rwkv":
             decay = torch.linspace(-6.0, -1.0, sum(b.tmix.w0.numel() for b in self.blocks))
             for b, vals in zip(self.blocks, decay.split(self.blocks[0].tmix.w0.numel())):
                 b.tmix.w0.copy_(vals.reshape(b.tmix.w0.shape))
@@ -269,13 +316,23 @@ class Model(nn.Module):
         positions = torch.arange(x.shape[1], device=self.device)[None].expand(B, -1)
         return x, positions
 
-    def backbone(self, tokens, prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
-        """Everything up to and including the final norm: hidden (B, S, d).
-        (Dense and RWKV blocks have no auxiliary loss, so none is returned.)"""
+    def backbone(self, tokens, prompt: Optional[torch.Tensor] = None, *,
+                 return_aux: bool = False):
+        """Everything up to and including the final norm: hidden (B, S, d),
+        or with ``return_aux`` (hidden, {"aux_loss": the MoE layers' router
+        losses summed in layer order, 0 for a model without them}), as the
+        reference's ``backbone`` returns."""
         x, positions = self.embed_inputs(tokens, prompt)
-        for block in self.blocks:
-            x = block(x, positions)
-        return self.final_norm(x)
+        aux = torch.zeros((), dtype=torch.float32, device=self.device)
+        for seg in self.segments:
+            for block in getattr(self, seg.name):
+                if seg.kind == "moe":
+                    x, a = block(x, positions)
+                    aux = aux + a
+                else:
+                    x = block(x, positions)
+        x = self.final_norm(x)
+        return (x, {"aux_loss": aux}) if return_aux else x
 
     def forward(self, tokens, prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S_total, V) in f32."""
@@ -285,12 +342,16 @@ class Model(nn.Module):
 
     def init_cache(self, batch: int, length: int) -> Dict:
         """An empty decode cache on the model's device, shaped as the
-        reference's tree: ``{"blocks": {"kv": {"k", "v", "pos"}}}`` for
-        dense blocks, ``{"blocks": {"state": {"s", "x_prev"}}}`` for RWKV6,
-        each leaf with the layer axis first."""
-        n = len(self.blocks)
-        one = block_cache(self.cfg, self.kind, batch, length, self.device)
-        return {"blocks": _map(lambda t: t[None].expand(n, *t.shape).clone(), one)}
+        reference's tree, one entry per segment: ``{"blocks": {"kv": {"k",
+        "v", "pos"}}}`` for GQA blocks, ``{"dense0": {"kv": {"c_kv",
+        "k_rope", "pos"}}, "moe": {"kv": {...}}}`` for an MLA MoE model,
+        ``{"blocks": {"state": {"s", "x_prev"}}}`` for RWKV6, each leaf with
+        the layer axis first."""
+        cache = {}
+        for seg in self.segments:
+            one = block_cache(self.cfg, seg.kind, batch, length, self.device)
+            cache[seg.name] = _map(lambda t: t[None].expand(seg.count, *t.shape).clone(), one)
+        return cache
 
     @torch.no_grad()
     def decode_step(self, cache: Dict, tokens, cache_len: int
@@ -300,9 +361,10 @@ class Model(nn.Module):
         cache updated in place."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed_tokens(self.embedding, tokens, self.dtype)
-        seg = cache["blocks"]
-        for i, block in enumerate(self.blocks):
-            x = block_decode(self.cfg, self.kind, block, x, _map(lambda t: t[i], seg),
-                             int(cache_len))
+        for seg in self.segments:
+            layers = cache[seg.name]
+            for i, block in enumerate(getattr(self, seg.name)):
+                x = block_decode(self.cfg, seg.kind, block, x, _map(lambda t: t[i], layers),
+                                 int(cache_len))
         x = self.final_norm(x)
         return unembed(self.cfg, self.embedding, self.unembed, x), cache

@@ -22,6 +22,7 @@ from repro_torch.configs import smoke_config
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import flash_decode as fd_mod
+from repro_torch.kernels import mla_decode as md_mod
 from repro_torch.kernels import rwkv_wkv as rw_mod
 from repro_torch.kernels import score_ce as sc_mod
 from repro_torch.models import Model
@@ -43,7 +44,8 @@ def test_port_imports_neither_jax_nor_repro():
         "for n in names: importlib.import_module(n)\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
-        "sys.exit(1 if bad or len(names) < 22 else 0)\n")
+        "new = {'repro_torch.models.moe', 'repro_torch.kernels.mla_decode'}\n"
+        "sys.exit(1 if bad or len(names) < 28 or not new <= set(names) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=_env(), timeout=120)
     assert proc.returncode == 0, proc.stdout + proc.stderr
@@ -80,6 +82,8 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(fd_mod, "flash_decode_plain", fell_back)
     monkeypatch.setattr(fd_mod, "combine_partials_plain", fell_back)
     monkeypatch.setattr(rw_mod, "rwkv6_wkv_plain", fell_back)
+    monkeypatch.setattr(md_mod, "mla_decode_plain", fell_back)
+    monkeypatch.setattr(md_mod, "combine_partials_plain", fell_back)
 
 
 def _raises_without_fallback(fn, exc=Exception, match=None):
@@ -166,12 +170,47 @@ def test_rwkv6_wkv_raises_on_cuda_misuse(as_if_cuda):
     assert rw_mod.rwkv6_wkv.launches == before
 
 
-def test_unported_families_raise():
-    from repro_torch.config import MoEConfig
+def test_mla_decode_raises_on_cuda_misuse(as_if_cuda):
+    ql, qp = torch.zeros(2, 8, 512), torch.zeros(2, 8, 64)
+    ckv, kpe = torch.zeros(2, 40, 512), torch.zeros(2, 40, 64)
+    kw = dict(scale=0.1, kv_len=30)
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql[..., :64], qp[..., :16], ckv[..., :64],
+                                                       kpe[..., :16], **kw),
+                             ValueError, "rope dim")
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql.bfloat16(), qp, ckv, kpe, **kw),
+                             ValueError, "dtype")
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql, qp[:, :4], ckv, kpe, **kw),
+                             ValueError, "disagree")
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql, qp, ckv, kpe, splits=0, **kw),
+                             ValueError, "splits")
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql, qp, ckv[:, :, :500], kpe, **kw),
+                             ValueError)
+    grad_q = ql.clone().requires_grad_(True)
+    _raises_without_fallback(lambda: md_mod.mla_decode(grad_q, qp, ckv, kpe, **kw),
+                             NotImplementedError, "forward-only")
+    before = md_mod.mla_decode.launches
+    _raises_without_fallback(lambda: md_mod.mla_decode(ql, qp, ckv, kpe, splits=4, **kw))
+    assert md_mod.mla_decode.launches == before
 
-    cfg = smoke_config("qwen2-7b").with_overrides(arch_type="moe", moe=MoEConfig(num_experts=4))
-    with pytest.raises(NotImplementedError, match="MLA/MoE slice"):
-        Model(cfg, device="cpu")
+
+def test_unported_families_raise():
+    """The MoE family is ported (with GQA or MLA); Mamba2, the hybrid and
+    the modality frontends still raise, naming their slice."""
+    import dataclasses
+
+    from repro_torch.config import FrontendConfig, HybridConfig, MoEConfig
+
+    moe = smoke_config("qwen2-7b").with_overrides(
+        arch_type="moe", moe=MoEConfig(num_experts=4, d_ff_expert=32))
+    assert [s.name for s in Model(moe, device="cpu").segments] == ["dense0", "moe"]
+    rwkv = smoke_config("rwkv6-7b")
+    mamba = rwkv.with_overrides(ssm=dataclasses.replace(rwkv.ssm, kind="mamba2"))
+    hybrid = mamba.with_overrides(arch_type="hybrid", hybrid=HybridConfig())
+    vlm = smoke_config("qwen2-7b").with_overrides(
+        arch_type="vlm", frontend=FrontendConfig(kind="vision", num_embeddings=8, embed_dim=48))
+    for cfg, slice_name in ((mamba, "Mamba2 slice"), (hybrid, "hybrid"), (vlm, "VLM slice")):
+        with pytest.raises(NotImplementedError, match=slice_name):
+            Model(cfg, device="cpu")
 
 
 def test_device_kind_rejects_mixed_devices():

@@ -1,0 +1,232 @@
+"""The port's MLA attention and its latent decode kernel against the JAX
+package's.
+
+- ``mla_decode_plain`` (what the port's ``mla_decode`` runs on CPU tensors)
+  against the Pallas kernel in interpret mode, as tests/test_kernels.py runs
+  it, and its ``kernels/ref.py`` oracle, at the reference test's dims;
+- ``ops.mla_flash_decode`` against the reference's adapter;
+- ``mla_forward`` and multi-step ``mla_decode`` against the reference on
+  ``smoke_config("deepseek-v2-236b")``, with the kernel path and the
+  position-masked path, the caches compared leaf by leaf;
+- on the card only: the CUDA kernel against its plain version.
+
+Inputs and weights come from numpy with a seed (weights at 1/sqrt(fan_in))
+and the same arrays go to both packages.
+"""
+import dataclasses
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.configs import smoke_config as jax_smoke_config
+from repro.kernels import ops as jops
+from repro.kernels.mla_decode import mla_decode as jmla_decode
+from repro.kernels.ref import mla_decode_ref
+from repro.models import attention as jattn
+from repro.models import build_model
+from repro_torch.configs import smoke_config
+from repro_torch.kernels import _build, ops
+from repro_torch.kernels.mla_decode import mla_decode, mla_decode_plain
+from repro_torch.models.attention import (MLAAttention, mla_decode as mla_decode_layer,
+                                          mla_forward, mla_init_cache)
+
+TOL = 1e-5
+
+
+def _close(out, ref, tol=TOL):
+    np.testing.assert_allclose(np.asarray(out, np.float32), np.asarray(ref, np.float32),
+                               rtol=tol, atol=tol)
+
+
+def moe_numpy_params(jmodel, seed):
+    """A parameter tree shaped like ``jmodel``'s (any family, MLA and MoE
+    included), with well-conditioned numpy values: norms near 1, biases
+    near 0, every matrix at 1/sqrt(fan_in) with fan_in the dims it
+    contracts, the layer axis first."""
+    rng = np.random.default_rng(seed)
+
+    def make(path, leaf):
+        name = jax.tree_util.keystr(path[-1:])
+        shape = leaf.shape
+        if "gamma" in name:
+            return (1 + 0.1 * rng.normal(size=shape)).astype(np.float32)
+        if "beta" in name or name in ("['bq']", "['bk']", "['bv']"):
+            return (0.1 * rng.normal(size=shape)).astype(np.float32)
+        if name == "['embedding']":
+            fan_in = shape[-1]
+        elif name in ("['wq']", "['wk']", "['wv']", "['wq_b']", "['wkv_b_k']", "['wkv_b_v']"):
+            fan_in = shape[-3]                      # (L, in, H, k): contract in
+        elif name == "['wo']":
+            fan_in = shape[-3] * shape[-2]          # (L, H, hd, d): contract H*hd
+        else:
+            fan_in = shape[-2]                      # (..., in, out), expert stacks included
+        return (rng.normal(size=shape) / np.sqrt(fan_in)).astype(np.float32)
+
+    return jax.tree_util.tree_map_with_path(make, jmodel.abstract_params())
+
+
+# -- mla_decode --------------------------------------------------------------------
+
+# (qk_nope, qk_rope, kv_lora, H): the reference test's dims, deepseek-v2's
+# latent geometry (512, 64) last
+MLA_DIMS = [(32, 16, 64, 8), (64, 32, 128, 16), (128, 64, 512, 8)]
+
+
+def _latent_inputs(B, H, L, r, rd, seed):
+    rng = np.random.default_rng(seed)
+    return (rng.normal(size=(B, H, r)).astype(np.float32) * 0.1,
+            rng.normal(size=(B, H, rd)).astype(np.float32),
+            rng.normal(size=(B, L, r)).astype(np.float32) * 0.1,
+            rng.normal(size=(B, L, rd)).astype(np.float32))
+
+
+@pytest.mark.parametrize("nope,rope,r,H", MLA_DIMS)
+@pytest.mark.parametrize("kv_len,q_pos", [(1, None), (37, None), (96, None), (90, 61)])
+def test_mla_decode_plain_matches_pallas_and_ref(nope, rope, r, H, kv_len, q_pos):
+    B, L = 2, 96
+    scale = 1.0 / np.sqrt(nope + rope)
+    arrays = _latent_inputs(B, H, L, r, rope, seed=nope + kv_len)
+    ours = mla_decode(*map(torch.from_numpy, arrays), scale=scale, kv_len=kv_len, q_pos=q_pos)
+    assert ours.shape == (B, H, r) and ours.dtype == torch.float32
+    jarrays = list(map(jnp.asarray, arrays))
+    _close(ours, jmla_decode(*jarrays, scale=scale, kv_len=kv_len, q_pos=q_pos, splits=4,
+                             bk=32, interpret=True))
+    _close(ours, mla_decode_ref(*jarrays, scale=scale, kv_len=kv_len, q_pos=q_pos))
+
+
+def test_mla_decode_plain_is_independent_of_splits():
+    arrays = [torch.from_numpy(a) for a in _latent_inputs(2, 8, 70, 64, 16, seed=3)]
+    ref = mla_decode_plain(*arrays, scale=0.2, kv_len=61, splits=1)
+    for splits in (2, 7, 64, 100):          # 100 > 61 live rows: empty partitions
+        _close(mla_decode_plain(*arrays, scale=0.2, kv_len=61, splits=splits), ref)
+
+
+@pytest.mark.parametrize("rank", [4, 3])
+def test_mla_flash_decode_matches_jax_adapter(rank):
+    B, H, L, r, rd = 2, 8, 40, 64, 16
+    ql, qp, ckv, kpe = _latent_inputs(B, H, L, r, rd, seed=rank)
+    if rank == 4:
+        ql, qp = ql[:, None], qp[:, None]
+    ours = ops.mla_flash_decode(*map(torch.from_numpy, (ql, qp, ckv, kpe)), scale=0.25,
+                                kv_len=31, q_pos=30)
+    assert ours.shape == ql.shape
+    _close(ours, jops.mla_flash_decode(*map(jnp.asarray, (ql, qp, ckv, kpe)), scale=0.25,
+                                       kv_len=31, q_pos=30))
+
+
+# -- MLA attention -------------------------------------------------------------------
+
+def _mla_pair(seed=3, q_lora=None):
+    """One MLA layer's weights from numpy, as a reference dict and as the
+    port's module."""
+    jcfg, cfg = jax_smoke_config("deepseek-v2-236b"), smoke_config("deepseek-v2-236b")
+    if q_lora is not None:
+        jcfg = jcfg.with_overrides(mla=dataclasses.replace(jcfg.mla, q_lora_rank=q_lora))
+        cfg = cfg.with_overrides(mla=dataclasses.replace(cfg.mla, q_lora_rank=q_lora))
+    jtree = moe_numpy_params(build_model(jcfg), seed)["moe"]["attn"]
+    tree = jax.tree.map(lambda a: np.asarray(a)[0], jtree)
+    attn = MLAAttention(cfg, device=torch.device("cpu"), dtype=torch.float32)
+    with torch.no_grad():
+        for name, arr in tree.items():
+            if isinstance(arr, dict):
+                getattr(attn, name).gamma.copy_(torch.from_numpy(arr["gamma"]))
+            else:
+                getattr(attn, name).copy_(torch.from_numpy(arr))
+    return jcfg, cfg, jax.tree.map(jnp.asarray, tree), attn
+
+
+@pytest.mark.parametrize("q_lora", [None, 0])       # the config's q_lora_rank, and wq
+def test_mla_forward_matches_jax(q_lora):
+    jcfg, cfg, jp, attn = _mla_pair(q_lora=q_lora)
+    B, S = 2, 11
+    x = np.random.default_rng(4).normal(size=(B, S, cfg.d_model)).astype(np.float32)
+    pos = np.broadcast_to(np.arange(S)[None], (B, S))
+    with torch.no_grad():
+        ours = mla_forward(cfg, attn, torch.from_numpy(x), torch.from_numpy(pos.copy()))
+    _close(ours, jattn.mla_forward(jcfg, jp, jnp.asarray(x), jnp.asarray(pos)))
+
+
+def _filled_latent_cache(cfg, B, L, n, seed):
+    """A latent cache whose first n slots hold positions 0..n-1."""
+    rng = np.random.default_rng(seed)
+    m = cfg.mla
+    pos = np.full((B, L), -1, np.int32)
+    pos[:, :n] = np.arange(n)
+    return {"c_kv": rng.normal(size=(B, L, m.kv_lora_rank)).astype(np.float32),
+            "k_rope": rng.normal(size=(B, L, m.qk_rope_head_dim)).astype(np.float32),
+            "pos": pos}
+
+
+@pytest.mark.parametrize("use_flash", [True, False])
+def test_mla_decode_matches_jax(use_flash):
+    """Five decode steps from a cache holding 10 positions, with the kernel
+    path (its plain version here) and the position-masked path, against the
+    reference's same path; caches leaf by leaf."""
+    jcfg, cfg, jp, attn = _mla_pair()
+    B, L, n = 2, 24, 10
+    arrays = _filled_latent_cache(cfg, B, L, n, seed=7)
+    jcache = {k: jnp.asarray(a) for k, a in arrays.items()}
+    cache = {k: torch.from_numpy(a.copy()) for k, a in arrays.items()}
+    xs = np.random.default_rng(8).normal(size=(5, B, 1, cfg.d_model)).astype(np.float32)
+    for step, x in enumerate(xs):
+        jy, jcache = jattn.mla_decode(jcfg, jp, jnp.asarray(x), jcache, jnp.int32(n + step),
+                                      use_flash=use_flash)
+        with torch.no_grad():
+            y, out_cache = mla_decode_layer(cfg, attn, torch.from_numpy(x), cache, n + step,
+                                            use_flash=use_flash)
+        assert out_cache is cache                 # written in place
+        _close(y, jy)
+    for name in ("c_kv", "k_rope", "pos"):
+        _close(cache[name], jcache[name])
+
+
+def test_mla_decode_raises_once_the_cache_wraps(monkeypatch):
+    """cache_len >= L: the prefix is no longer contiguous. On CUDA (the
+    device check mocked here) that raises before the cache is touched; on
+    the CPU it takes the position-masked path, as the reference's CPU run
+    does; asking for the kernel raises on both."""
+    _, cfg, _, attn = _mla_pair()
+    B, L = 1, 8
+    x = torch.zeros(B, 1, cfg.d_model)
+    cache = mla_init_cache(cfg, B, L, torch.float32, torch.device("cpu"))
+    with torch.no_grad():
+        with pytest.raises(ValueError, match="use_flash"):
+            mla_decode_layer(cfg, attn, x, cache, L, use_flash=True)
+        mla_decode_layer(cfg, attn, x, cache, L)                 # CPU: masked path
+        assert int(cache["pos"][0, 0]) == L
+        monkeypatch.setattr(_build, "device_kind", lambda *ts: "cuda")
+        with pytest.raises(ValueError, match="wrapped"):
+            mla_decode_layer(cfg, attn, x, cache, L + 1)
+    assert int(cache["pos"][0, 1]) == -1                         # untouched
+
+
+# -- on the card -----------------------------------------------------------------
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernels have no CPU mode")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_cuda_mla_decode_matches_plain(cuda_device, dtype):
+    gen = torch.Generator(device=cuda_device).manual_seed(0)
+    for B, H, L, kw in [(2, 16, 100, {"kv_len": 3, "splits": 8}),   # 5 of 8 splits empty
+                        (2, 40, 300, {"kv_len": 257}),
+                        (1, 128, 2000, {"kv_len": 1500, "q_pos": 900})]:
+        ql, qp = (torch.randn(B, H, d, generator=gen, device=cuda_device).to(dtype)
+                  for d in (512, 64))
+        ckv, kpe = (torch.randn(B, L, d, generator=gen, device=cuda_device).to(dtype)
+                    for d in (512, 64))
+        want = mla_decode_plain(ql, qp, ckv, kpe, scale=192 ** -0.5, **kw).float()
+        # in bf16 both round an f32 result once, so the bound scales with it
+        rtol, atol = ((2e-5, 2e-5) if dtype == torch.float32
+                      else (1e-2, 1e-3 * want.abs().max().item()))
+        torch.testing.assert_close(mla_decode(ql, qp, ckv, kpe, scale=192 ** -0.5, **kw).float(),
+                                   want, rtol=rtol, atol=atol)
