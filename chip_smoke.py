@@ -8,11 +8,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc for sm_90a (one
    nvcc per source, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
-   and f32: score_ce and flash_attention at the scoring path's shapes and at
-   ragged and GQA ones; flash_decode at qwen2-7b's serve shape (the whole
-   cache and a ragged kv_len), at G=1 with hd=64, with a window, and with
-   empty partitions; rwkv6_wkv at B*H=1024, T=33 and 513, from a zero and a
-   given state.
+   and f32: score_ce at the scoring path's shapes; flash_attention at them
+   and at the edges of its 64-row tiles (S = 1, 65 and 513, q_offset > 0, a
+   window edge inside a tile, GQA, non-causal with a short kv_len);
+   flash_decode at qwen2-7b's serve shape (the whole cache and a ragged
+   kv_len), at kv_len 1, 63, 64 and 65, at G = 1, 4, 7, 8 and 16, hd = 64
+   and 128, with windows, with q_pos < kv_len - 1, and with empty
+   partitions; rwkv6_wkv at B*H=1024, T=33 and 513, from a zero and a given
+   state.
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
@@ -217,31 +220,45 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             err = check_close(f"score_ce T={T} {dtype}", out, score_ce_plain(h, e, lab), TOL[dtype])
             worst["score_ce"] = max(worst["score_ce"], err)
             print(f"[2] score_ce T={T} D={D} V={V} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
-        cases = [  # B, H, Hkv, S, L, hd, kwargs
+        cases = [  # B, H, Hkv, S, L, hd, kwargs (causal unless they say otherwise)
             (16, 12, 12, 33, 33, 64, {}),
             (16, 12, 12, 513, 513, 64, {}),
             (2, 28, 4, 513, 513, 128, {}),
             (2, 28, 4, 513, 513, 128, {"window": 128, "kv_len": 400}),
             (2, 28, 4, 64, 513, 128, {"q_offset": 449}),
+            (4, 12, 12, 1, 1, 64, {}),                               # S = 1
+            (4, 12, 12, 65, 65, 64, {}),                             # one row past a tile
+            (2, 28, 4, 1, 513, 128, {"q_offset": 512}),              # one row at the end
+            (2, 12, 4, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
+            (2, 28, 4, 513, 513, 128, {"window": 100}),
+            (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
         ]
         for B, H, Hkv, S, L, hd, kw in cases:
+            kw = {"causal": True, **kw}
             q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(dtype)
             v = torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(dtype)
-            out = flash_attention(q, k, v, causal=True, **kw)
+            out = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
-            ref = flash_attention_plain(q, k, v, causal=True, **kw)
+            ref = flash_attention_plain(q, k, v, **kw)
             err = check_close(f"flash_attention {(B, H, Hkv, S, L, hd)} {kw} {dtype}",
                               out, ref, TOL[dtype])
             worst["flash_attention"] = max(worst["flash_attention"], err)
             print(f"[2] flash_attention B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} "
-                  f"causal {kw} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
+                  f"{kw} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
         decode_cases = [  # B, H, Hkv, L, hd, kwargs
             (16, 28, 4, 32768, 128, {"kv_len": 32768}),              # qwen2-7b serve shape
             (16, 28, 4, 32768, 128, {"kv_len": 20001}),              # ragged
             (4, 12, 12, 1000, 64, {"kv_len": 777}),                  # G = 1, hd = 64
             (2, 28, 4, 4096, 128, {"kv_len": 3000, "window": 1024}),  # sliding window
-            (2, 28, 4, 4096, 128, {"kv_len": 5, "q_pos": 3}),        # 4 live rows: 4 of 8 splits empty
+            (2, 28, 4, 4096, 128, {"kv_len": 5, "q_pos": 3, "splits": 8}),  # 4 of 8 splits empty
+            (3, 28, 4, 512, 128, {"kv_len": 1}),                     # one live row
+            (3, 28, 4, 512, 128, {"kv_len": 63}),                    # one chunk short of a tile
+            (3, 28, 4, 512, 128, {"kv_len": 64}),                    # one whole tile
+            (3, 32, 4, 512, 64, {"kv_len": 65}),                     # G = 8, one row past a tile
+            (3, 16, 4, 4096, 128, {"kv_len": 4000, "q_pos": 2500}),  # G = 4, q_pos < kv_len - 1
+            (2, 28, 4, 4096, 128, {"kv_len": 3000, "window": 1000}),  # window edge inside a tile
+            (2, 32, 2, 1000, 128, {"kv_len": 900}),                  # G = 16: two head groups
         ]
         for B, H, Hkv, L, hd, kw in decode_cases:
             q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
@@ -406,11 +423,53 @@ def phase_times(model, seed: int) -> dict:
                    q, k, v, is_causal=True)),
                "bound_ms": b_ms, "bound_by": b_by}
         rows.setdefault("flash_attention", []).append(row)
+    sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
+    library_yardstick(f"[5] flash_attention {rows['flash_attention'][-1]['shape']}",
+                      lambda: flash_attention(q, k, v, causal=True), sdpa)
     for name, rs in rows.items():
         for r in rs:
             print(f"[5] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
                   f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
+
+
+def kernel_launches(label: str, fn) -> None:
+    """The kernels one call of ``fn`` launches, each with its launch shape
+    and device time, from a profiler trace written under build/. A fill
+    kernel runs first inside the trace, and is left out of the listing: the
+    profiler can miss the first kernel it sees."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        torch.zeros(1, device="cuda")
+        fn()
+        torch.cuda.synchronize()
+    path = ROOT / "build" / "launches.trace.json"
+    path.parent.mkdir(exist_ok=True)
+    prof.export_chrome_trace(str(path))
+    for e in json.loads(path.read_text())["traceEvents"]:
+        if e.get("cat") == "kernel" and "FillFunctor" not in e["name"]:
+            a = e["args"]
+            print(f"{label}: {e['dur']:.1f} us grid {a.get('grid')} block {a.get('block')} "
+                  f"{a.get('registers per thread')} registers {a.get('shared memory')} B shared  "
+                  f"{e['name'][:90]}")
+
+
+def library_yardstick(label: str, kernel, call) -> None:
+    """The kernels the port's call and the library call launch (the library
+    dispatches by shape and card, so its time may be another design's), and
+    the library call's time with the FlashAttention-2 backend forced, the
+    mma.sync design the port's kernels share."""
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    def forced():
+        with sdpa_kernel([SDPBackend.FLASH_ATTENTION]):
+            return call()
+    kernel_launches(f"{label}, port", kernel)
+    kernel_launches(f"{label}, SDPA", call)
+    print(f"{label}: SDPA with the FlashAttention-2 backend forced: {time_ms(forced):.4f} ms")
 
 
 def profile_calls(label: str, fn, warm: int = 3, reps: int = 10, traced: int = 5) -> dict:
@@ -608,7 +667,7 @@ def wkv_bound(B: int, H: int, T: int, hd: int, elt: int):
 def phase_serve(dev: torch.device, seed: int) -> dict:
     from repro_torch.config import INPUT_SHAPES
     from repro_torch.configs import get_config
-    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
     from repro_torch.launch import make_serve_step
     from repro_torch.models import Model
 
@@ -668,7 +727,10 @@ def phase_serve(dev: torch.device, seed: int) -> dict:
     k, v = kv["k"][0].transpose(1, 2), kv["v"][0].transpose(1, 2)
     q = torch.randn(B, H, hd, generator=gen, device=dev).to(k.dtype)
     b_ms, b_by = decode_bound(B, H, Hkv, hd, live, k.element_size())
-    row = {"shape": f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} kv_len={live} {cfg.dtype}",
+    splits = auto_splits(B, Hkv, H // Hkv, live,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    row = {"shape": f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} kv_len={live} {cfg.dtype}, "
+                    f"{splits} splits",
            "ms": time_ms(lambda: flash_decode(q, k, v, kv_len=live)),
            "plain_ms": time_ms(lambda: flash_decode_plain(q, k, v, kv_len=live), reps=5),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
@@ -678,6 +740,9 @@ def phase_serve(dev: torch.device, seed: int) -> dict:
     print(f"[6b] flash_decode {row['shape']}: kernel {row['ms']:.4f} ms, plain "
           f"{row['plain_ms']:.4f} ms, library (SDPA over all {L} rows) {row['library_ms']:.4f} ms, "
           f"bound {b_ms:.4f} ms ({b_by})")
+    sdpa = lambda: F.scaled_dot_product_attention(q[:, :, None], k, v, enable_gqa=True)
+    library_yardstick(f"[6b] flash_decode {row['shape']}",
+                      lambda: flash_decode(q, k, v, kv_len=live), sdpa)
     row["profile"] = profile_calls("[6b] one serve step at batch 16, cache 32767",
                                    lambda: serve(cache, tok, L - 1), warm=2, reps=5, traced=3)
     row["step_ms"], row["tokens_per_s"], row["decode_rel"] = med * 1e3, B / med, decode_rel

@@ -107,29 +107,6 @@ struct Layout {
   static_assert(WARPS == kColChunks * (HEADS / 32), "every warp owns 64 columns of 32 heads");
 };
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
-  const unsigned a = static_cast<unsigned>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(a));
-}
-
-__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // A warp's share of the scores: 16 heads (its m16 tile) × the tile's 32
 // rows over one quarter of the depth (144), as four n8 accumulators in the
 // accumulator layout of mma.sync m16n8: acc[n][0..1] = S[g][8n + 2t + {0, 1}],
@@ -137,24 +114,21 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
 //
 // bf16: the warp's q fragments stay in registers for the whole walk (9 k16
 // steps × 4 registers), so a tile costs only its own rows from shared
-// memory; each ldmatrix.x4 brings the B fragments of two n8 tiles (lane l
-// addresses row 8·(l >> 4) + (l & 7) at column 8·((l >> 3) & 1)), and the
-// four accumulators are four independent mma chains of 9.
+// memory; each ldmatrix.x4 brings the B fragments of two n8 tiles (lane
+// addresses from b_rows, warp_tile.cuh), and the four accumulators are four
+// independent mma chains of 9.
 struct QFrag {
   uint32_t a[kSteps][4];
   // q: the warp's 16 rows from their first depth column, leading dim LD
   __device__ __forceinline__ void load(const __nv_bfloat16* q) {
     constexpr int LD = Layout<__nv_bfloat16>::LD;
-    const int lane = threadIdx.x & 31;
 #pragma unroll
-    for (int s = 0; s < kSteps; ++s)
-      ldmatrix_x4(a[s], q + (lane & 15) * LD + 16 * s + (lane >> 4) * 8);
+    for (int s = 0; s < kSteps; ++s) ldmatrix_x4(a[s], q + a_rows(LD) + 16 * s);
   }
   // tile: the 32 cache rows from the warp's first depth column
   __device__ __forceinline__ void scores(const __nv_bfloat16* tile, float (&acc)[4][4]) const {
     constexpr int LD = Layout<__nv_bfloat16>::LD;
-    const int lane = threadIdx.x & 31;
-    const __nv_bfloat16* row = tile + (8 * (lane >> 4) + (lane & 7)) * LD + ((lane >> 3) & 1) * 8;
+    const __nv_bfloat16* row = tile + b_rows(LD);
 #pragma unroll
     for (int s = 0; s < kSteps; ++s)
 #pragma unroll
@@ -191,11 +165,7 @@ __device__ __forceinline__ void pv_mma(const __nv_bfloat16* P, const __nv_bfloat
   using Lay = Layout<__nv_bfloat16>;
   constexpr int LD = Lay::LD, LDP = Lay::LDP;
   const int lane = threadIdx.x & 31, g = lane >> 2, t = lane & 3;
-  // ldmatrix.x4.trans: lane l addresses row (l & 7) of 8×8 matrix l >> 3;
-  // matrices 0/1 are rows k0..k0+7 / k0+8..k0+15 of columns 8n..8n+7, and
-  // 2/3 the same rows of columns 8n+8..8n+15: the b0, b1 fragments of two
-  // n8 tiles.
-  const int vrow = (lane & 7) + ((lane >> 3) & 1) * 8, vcol = (lane >> 4) * 8;
+  // ldmatrix.x4.trans at b_cols: the b0, b1 fragments of n8 tiles n, n + 1
 #pragma unroll
   for (int k0 = 0; k0 < kRows; k0 += 16) {
     uint32_t a[2][2][4];                                   // [plane][m tile]
@@ -213,7 +183,7 @@ __device__ __forceinline__ void pv_mma(const __nv_bfloat16* P, const __nv_bfloat
 #pragma unroll
     for (int n = 0; n < kN8; n += 2) {
       uint32_t b[4];
-      ldmatrix_x4_trans(b, V + (k0 + vrow) * LD + 8 * n + vcol);
+      ldmatrix_x4_trans(b, V + b_cols(LD) + k0 * LD + 8 * n);
 #pragma unroll
       for (int pl = 0; pl < 2; ++pl)
 #pragma unroll
@@ -265,8 +235,7 @@ __device__ __forceinline__ void store_p(float* P, int idx, float p) { P[idx] = p
 // Starts the copy of [a | b] rows (kR and kRd wide, row strides sa and sb)
 // into shared rows of leading dimension ld with cp.async, 16 bytes a thread,
 // every copy of the tile in flight at once. Rows past n are zero-filled and
-// their source is not read. cp_async_wait<N> waits until at most N of this
-// thread's committed copy groups are still in flight.
+// their source is not read.
 template <typename T, int ROWS>
 __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* a, long long sa,
                                           const T* b, long long sb, int n) {
@@ -275,16 +244,9 @@ __device__ __forceinline__ void copy_rows(T* dst, int ld, const T* a, long long 
     const int r = i / PER_ROW, c = (i % PER_ROW) * VEC;
     const int src_row = r < n ? r : 0;
     const T* src = c < kR ? a + src_row * sa + c : b + src_row * sb + (c - kR);
-    const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst + r * ld + c));
-    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-                 :: "r"(d), "l"(src), "r"(r < n ? 16 : 0));
+    cp_async_16(dst + r * ld + c, src, r < n ? 16 : 0);
   }
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" :: "n"(N));
+  cp_async_commit();
 }
 
 template <typename T>

@@ -11,7 +11,9 @@ is live iff ``j < kv_len``, ``j <= q_pos`` (default ``kv_len - 1``) and, with
 a window, ``j > q_pos - window``. The live rows ``[lo, hi)`` are cut into
 ``splits`` equal partitions; each yields an output normalised by its own
 softmax sum and its log-sum-exp (-1e30 when empty), and the partitions are
-merged exactly by an LSE-weighted sum.
+merged exactly by an LSE-weighted sum. ``splits=None`` sizes the grid to the
+card (``auto_splits``) on CUDA and takes the reference's 8 on the CPU; the
+split count changes only the order of f32 sums.
 
 ``flash_decode`` launches the kernels (partial pass and combine, counted as
 one launch in ``flash_decode.launches``) for CUDA tensors and uses
@@ -28,7 +30,10 @@ from repro_torch.kernels import _build
 
 NEG_INF = -1e30
 HEAD_DIMS = (64, 128)        # head dims the CUDA kernel is instantiated for
-G_TILES = (1, 2, 4, 8)       # query heads one block handles, instantiated
+G_TILES = (1, 2, 4, 8)       # query heads one f32 block handles, instantiated
+HEADS_PER_BLOCK = 8          # query heads one bf16 block handles (its mma rows)
+ROWS_PER_TILE = 64           # cache rows a bf16 block takes per step: 4 warps x 16
+DEFAULT_SPLITS = 8           # the reference's split count, used on the CPU
 
 
 def live_range(L: int, kv_len: Optional[int], q_pos: Optional[int],
@@ -43,6 +48,21 @@ def live_range(L: int, kv_len: Optional[int], q_pos: Optional[int],
 
 def rows_per_split(lo: int, hi: int, splits: int) -> int:
     return max(1, -(-(hi - lo) // splits))
+
+
+def auto_splits(B: int, Hkv: int, G: int, live: int, sms: int) -> int:
+    """Partitions of ``live`` rows for one call on a card with ``sms`` SMs:
+    as many as give every SM one block, rounded down, and none shorter than
+    one tile (``ROWS_PER_TILE``) unless all the live rows are. One block an
+    SM already keeps more bytes in flight than the memory needs, and fewer
+    partitions leave less to combine. At qwen2-7b's serve shape (B = 16,
+    Hkv = 4, G = 7, 132 SMs) that is 2 splits of 16384 rows: 128 blocks."""
+    groups = -(-G // HEADS_PER_BLOCK)
+    want = sms // max(1, B * Hkv * groups)
+    splits = max(1, min(want, live // ROWS_PER_TILE))
+    while splits > 1 and live - (splits - 1) * rows_per_split(0, live, splits) < ROWS_PER_TILE:
+        splits -= 1
+    return splits
 
 
 def combine_partials_plain(o_part: torch.Tensor, lse: torch.Tensor,
@@ -60,7 +80,7 @@ def combine_partials_plain(o_part: torch.Tensor, lse: torch.Tensor,
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                        kv_len: Optional[int] = None, q_pos: Optional[int] = None,
-                       window: int = 0, splits: int = 8) -> torch.Tensor:
+                       window: int = 0, splits: int = DEFAULT_SPLITS) -> torch.Tensor:
     """The same function written out, partition by partition as the kernel
     cuts it: per partition a full f32 softmax over its rows, then the
     combine. Returns (B, H, hd) in q's dtype."""
@@ -97,19 +117,20 @@ def _lib() -> ctypes.CDLL:
 
 
 def g_tile(G: int) -> int:
-    """Query heads per block: the smallest instantiated tile holding the
-    group, at most 8 (a larger group takes several blocks)."""
+    """Query heads per f32 block: the smallest instantiated tile holding
+    the group, at most 8 (a larger group takes several blocks)."""
     return next(t for t in G_TILES if t >= min(G, G_TILES[-1]))
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                  kv_len: Optional[int] = None, q_pos: Optional[int] = None,
-                 window: int = 0, splits: int = 8) -> torch.Tensor:
+                 window: int = 0, splits: Optional[int] = None) -> torch.Tensor:
     """q (B, H, hd), k/v (B, Hkv, L, hd) -> (B, H, hd) in q's dtype.
-    ``kv_len`` and ``q_pos`` are Python ints shared across the batch."""
+    ``kv_len`` and ``q_pos`` are Python ints shared across the batch;
+    ``splits`` None: ``auto_splits`` on CUDA, 8 on the CPU."""
     if _build.device_kind(q, k, v) == "cpu":
         return flash_decode_plain(q, k, v, kv_len=kv_len, q_pos=q_pos, window=window,
-                                  splits=splits)
+                                  splits=DEFAULT_SPLITS if splits is None else splits)
     if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_decode: expects q (B,H,hd), k/v (B,Hkv,L,hd), got "
                          f"{tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -125,7 +146,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             or v.dtype != q.dtype:
         raise ValueError("flash_decode: q, k, v must share one dtype, float32 or "
                          f"bfloat16, got {q.dtype}, {k.dtype}, {v.dtype}")
-    if splits < 1 or B > 65535:
+    if (splits is not None and splits < 1) or B > 65535:
         raise ValueError(f"flash_decode: needs splits >= 1 and B <= 65535, got "
                          f"splits={splits}, B={B}")
     vec = 16 // q.element_size()
@@ -138,6 +159,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     if B == 0 or H == 0:
         return out
     lo, hi = live_range(L, kv_len, q_pos, window)
+    if splits is None:
+        sms = torch.cuda.get_device_properties(q.device).multi_processor_count
+        splits = auto_splits(B, Hkv, H // Hkv, hi - lo, sms)
     per = rows_per_split(lo, hi, splits)
     o_part = torch.empty((B, H, splits, hd), dtype=torch.float32, device=q.device)
     lse = torch.empty((B, H, splits), dtype=torch.float32, device=q.device)

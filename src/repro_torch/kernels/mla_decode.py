@@ -27,14 +27,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import _build
-from repro_torch.kernels.flash_decode import (NEG_INF, combine_partials_plain, live_range,
-                                              rows_per_split)
+from repro_torch.kernels.flash_decode import (DEFAULT_SPLITS, NEG_INF, combine_partials_plain,
+                                              live_range, rows_per_split)
 
 DIMS = (512, 64)          # (kv_lora_rank, rope dim) the CUDA kernel is instantiated for
 HEADS_PER_BLOCK = {torch.bfloat16: 64, torch.float32: 32}   # query heads one block handles
 ROWS_PER_TILE = 32        # cache rows the kernel stages per step
 WAVES = 2                 # the grid fills the card (one block an SM) at most this many times
-DEFAULT_SPLITS = 8        # the reference's split count, used on the CPU
 
 
 def mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,

@@ -52,13 +52,14 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def gqa_flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                      kv_len: int, q_pos: int, window: int = 0,
-                     splits: int = 8) -> torch.Tensor:
+                     splits: Optional[int] = None) -> torch.Tensor:
     """Single-token decode adapter: q (B, 1, H, hd) or (B, H, hd), k/v
     (B, L, Hkv, hd) -> the rank of q. The cache is read in place through
     transposed views. ``kv_len`` and ``q_pos`` are Python ints (the
     contiguous-prefix cache convention), so a decode step reads nothing
-    back from the device. At qwen2-7b's serve shape (B = 16, Hkv = 4) the
-    8 splits make 512 blocks, about 4 per SM of an H100."""
+    back from the device. ``splits`` None sizes the grid to the card
+    (``flash_decode.auto_splits``; 8 on the CPU): at qwen2-7b's serve shape
+    (B = 16, Hkv = 4, 132 SMs) 2 splits make 128 blocks, one an SM."""
     squeeze = q.dim() == 4
     if squeeze:
         if q.shape[1] != 1:

@@ -27,12 +27,16 @@ from repro.models import attention as jattn
 from repro.models import build_model
 from repro_torch.configs import smoke_config
 from repro_torch.kernels import _build, ops
-from repro_torch.kernels.flash_decode import (combine_partials_plain, flash_decode,
-                                              flash_decode_plain)
+from repro_torch.kernels.flash_decode import (HEADS_PER_BLOCK, ROWS_PER_TILE,
+                                              auto_splits, combine_partials_plain,
+                                              flash_decode, flash_decode_plain, live_range,
+                                              rows_per_split)
 from repro_torch.launch import make_serve_step
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models.attention import GQAAttention, gqa_decode, gqa_init_cache
 from test_torch_model import numpy_params
+
+from _hypothesis_compat import given, settings, st
 
 TOL = 2e-5        # kernel plain versions in f32, as tests/test_kernels.py
 MODEL_TOL = 1e-5  # the model in f32, as tests/test_torch_model.py
@@ -92,24 +96,69 @@ def test_combine_partials_plain_matches_jax():
     assert torch.all(ours[1, 2] == 0)
 
 
-@pytest.mark.parametrize("rank,window", [(4, 0), (3, 0), (4, 9)])
-def test_gqa_flash_decode_matches_jax_adapter(rank, window):
+@pytest.mark.parametrize("rank,window,L,kv_len", [(4, 0, 40, 31), (3, 0, 40, 31), (4, 9, 40, 31),
+                                                  (4, 0, 300, 261)])   # several TPU KV tiles
+def test_gqa_flash_decode_matches_jax_adapter(rank, window, L, kv_len):
+    """``splits=None``, as ``gqa_decode`` passes it: on CPU tensors the
+    reference's 8 partitions, so the result is the JAX adapter's."""
     rng = np.random.default_rng(rank + window)
-    B, H, Hkv, L, hd = 2, 14, 2, 40, 32
+    B, H, Hkv, hd = 2, 14, 2, 32
     q = rng.normal(size=(B, 1, H, hd) if rank == 4 else (B, H, hd)).astype(np.float32)
     k = rng.normal(size=(B, L, Hkv, hd)).astype(np.float32)
     v = rng.normal(size=(B, L, Hkv, hd)).astype(np.float32)
-    ours = ops.gqa_flash_decode(*map(torch.from_numpy, (q, k, v)), kv_len=31, q_pos=30,
-                                window=window)
+    ours = ops.gqa_flash_decode(*map(torch.from_numpy, (q, k, v)), kv_len=kv_len,
+                                q_pos=kv_len - 1, window=window, splits=None)
     assert ours.shape == q.shape
-    _close(ours, jops.gqa_flash_decode(*map(jnp.asarray, (q, k, v)), kv_len=31, q_pos=30,
-                                       window=window))
+    _close(ours, jops.gqa_flash_decode(*map(jnp.asarray, (q, k, v)), kv_len=kv_len,
+                                       q_pos=kv_len - 1, window=window))
 
 
 def test_gqa_flash_decode_rejects_oversized_head_dim():
     x = torch.zeros(1, 1, 4, 512)
     with pytest.raises(ValueError, match="head_dim=512"):
         ops.gqa_flash_decode(x, x, x, kv_len=1, q_pos=0)
+
+
+# -- auto_splits -------------------------------------------------------------------
+
+def _check_auto_splits(B, Hkv, G, sms, L, kv_len, q_pos, window):
+    """The partitions ``auto_splits`` gives the kernel hold every live row
+    exactly once, none is shorter than one tile (unless all the live rows
+    are), and the grid gives no SM a second block (or takes one partition)."""
+    lo, hi = live_range(L, kv_len, q_pos, window)
+    splits = auto_splits(B, Hkv, G, hi - lo, sms)
+    per = rows_per_split(lo, hi, splits)
+    parts = [(lo + s * per, min(lo + (s + 1) * per, hi)) for s in range(splits)]
+    assert [r for a, b in parts for r in range(a, b)] == list(range(lo, hi))
+    assert all(b - a >= min(ROWS_PER_TILE, hi - lo) for a, b in parts)
+    assert splits == 1 or splits * B * Hkv * -(-G // HEADS_PER_BLOCK) <= sms
+    return splits
+
+
+@pytest.mark.parametrize("B,L,kv_len,q_pos,window,want", [
+    (16, 32768, 32767, None, 0, 2),     # the serve shape: 2 x 64 blocks on 132 SMs
+    (16, 32768, 32768, None, 0, 2),
+    (16, 32768, 20001, None, 0, 2),
+    (16, 32768, 1, None, 0, 1),
+    (16, 32768, 5, None, 0, 1),
+    (1, 32768, 127, None, 0, 1),        # under two tiles: one partition
+    (1, 32768, 128, None, 0, 2),
+    (1, 32768, 32767, None, 0, 33),     # one sequence: 33 x 4 blocks
+    (1, 4096, 4000, 2500, 0, 33),       # q_pos < kv_len - 1: 2501 live rows
+    (1, 4096, 3000, None, 1000, 14),    # a window: 1000 live rows; 15 splits would leave 62
+    (1, 4096, 3000, None, 100, 1),
+])
+def test_auto_splits_at_the_serve_shape(B, L, kv_len, q_pos, window, want):
+    assert _check_auto_splits(B, 4, 7, 132, L, kv_len, q_pos, window) == want
+
+
+@settings(max_examples=200, deadline=None, database=None, derandomize=True)
+@given(B=st.integers(1, 64), Hkv=st.sampled_from([1, 2, 4, 8]), G=st.integers(1, 20),
+       sms=st.sampled_from([78, 114, 132]), L=st.integers(1, 70000),
+       live_share=st.floats(0.0, 1.0), window=st.sampled_from([0, 1, 63, 64, 65, 1000]))
+def test_auto_splits_partitions_every_live_row_once(B, Hkv, G, sms, L, live_share, window):
+    kv_len = max(1, int(L * live_share))
+    _check_auto_splits(B, Hkv, G, sms, L, kv_len, None, window)
 
 
 # -- gqa_decode --------------------------------------------------------------------

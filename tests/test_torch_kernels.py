@@ -140,20 +140,39 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
     lab = torch.randint(0, 509, (100,), generator=gen, device=cuda_device, dtype=torch.int32)
     torch.testing.assert_close(score_ce(h, e, lab), score_ce_plain(h, e, lab),
                                rtol=tol, atol=tol)
-    for hd, kw in [(64, {}), (128, {"window": 20, "q_offset": 30, "kv_len": 90})]:
-        q = torch.randn(2, 4, 70, hd, generator=gen, device=cuda_device).to(dtype)
-        k = torch.randn(2, 2, 100, hd, generator=gen, device=cuda_device).to(dtype)
-        v = torch.randn(2, 2, 100, hd, generator=gen, device=cuda_device).to(dtype)
+    for B, H, Hkv, S, L, hd, kw in [
+            (2, 4, 2, 70, 100, 64, {}),
+            (2, 4, 2, 70, 100, 128, {"window": 20, "q_offset": 30, "kv_len": 90}),
+            (2, 4, 4, 1, 1, 64, {}),                                  # S = 1
+            (2, 4, 2, 1, 513, 128, {"q_offset": 512}),                # one row, far along
+            (2, 4, 2, 65, 65, 64, {}),                                # one row past a tile
+            (1, 12, 4, 513, 513, 64, {}),
+            (1, 28, 4, 513, 513, 128, {}),
+            (2, 4, 2, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
+            (2, 4, 2, 65, 130, 64, {"causal": False, "kv_len": 100})]:
+        q = torch.randn(B, H, S, hd, generator=gen, device=cuda_device).to(dtype)
+        k = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
+        v = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
         torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
                                    flash_attention_plain(q, k, v, **kw).float(),
                                    rtol=tol, atol=tol)
-    for H, Hkv, hd, L, kw in [(4, 2, 64, 100, {}),
-                              (28, 4, 128, 100, {"kv_len": 90, "window": 30}),
-                              (7, 1, 128, 100, {"kv_len": 3}),
-                              (28, 4, 128, 8192, {"kv_len": 5001})]:
-        q = torch.randn(3, H, hd, generator=gen, device=cuda_device).to(dtype)
+    for B, H, Hkv, hd, L, kw in [
+            (3, 4, 2, 64, 100, {}),
+            (3, 28, 4, 128, 100, {"kv_len": 90, "window": 30}),
+            (3, 7, 1, 128, 100, {"kv_len": 3}),
+            (3, 28, 4, 128, 8192, {"kv_len": 5001}),
+            (3, 28, 4, 128, 512, {"kv_len": 1}),
+            (3, 28, 4, 128, 512, {"kv_len": 63}),
+            (3, 28, 4, 128, 512, {"kv_len": 64}),
+            (3, 32, 4, 64, 512, {"kv_len": 65}),                      # G = 8
+            (3, 16, 4, 128, 4096, {"kv_len": 4000, "q_pos": 2500}),   # G = 4
+            (2, 4, 4, 64, 1000, {"kv_len": 777}),                     # G = 1
+            (2, 28, 4, 128, 32768, {"kv_len": 20001}),
+            (2, 28, 4, 128, 4096, {"kv_len": 3000, "window": 1000}),  # window edge inside a tile
+            (2, 28, 4, 128, 4096, {"kv_len": 5, "q_pos": 3, "splits": 8})]:   # empty partitions
+        q = torch.randn(B, H, hd, generator=gen, device=cuda_device).to(dtype)
         # k, v: the model's (B, L, Hkv, hd) cache, read through transposed views
-        k, v = (torch.randn(3, L, Hkv, hd, generator=gen, device=cuda_device)
+        k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=cuda_device)
                 .to(dtype).transpose(1, 2) for _ in range(2))
         want = flash_decode_plain(q, k, v, **kw).float()
         # in bf16 both round an f32 result once: about one unit in the last
