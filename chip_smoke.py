@@ -8,24 +8,33 @@ Phases, in order; any failure ends the run with a non-zero exit:
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc for sm_90a (one
    nvcc per source, in parallel) and print the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
-   and f32: score_ce at the scoring path's shapes; flash_attention at them
-   and at the edges of its 64-row tiles (S = 1, 65 and 513, q_offset > 0, a
-   window edge inside a tile, GQA, non-causal with a short kv_len);
-   flash_decode at qwen2-7b's serve shape (the whole cache and a ragged
-   kv_len), at kv_len 1, 63, 64 and 65, at G = 1, 4, 7, 8 and 16, hd = 64
-   and 128, with windows, with q_pos < kv_len - 1, and with empty
-   partitions; rwkv6_wkv at B*H=1024, T=33 and 513, from a zero and a given
-   state.
+   and f32: score_ce at gpt2-base's shapes (T = 272 and 7952, D = 768,
+   V = 50257), at T = 1 and 273 (one row; one past a 128-row tile), at
+   rwkv6-7b's (D = 4096, V = 65536) and deepseek-v2's (D = 5120, V = 102400)
+   at T = 272 and 7952, with labels 0, V - 1 and inside the ragged last
+   vocabulary tile; flash_attention at the scoring shapes and at the edges of its
+   64-row tiles (S = 1, 65 and 513, q_offset > 0, a window edge inside a
+   tile, GQA, non-causal with a short kv_len); flash_decode at qwen2-7b's
+   serve shape (the whole cache and a ragged kv_len), at kv_len 1, 63, 64
+   and 65, at G = 1, 4, 7, 8 and 16, hd = 64 and 128, with windows, with
+   q_pos < kv_len - 1, and with empty partitions; rwkv6_wkv at B*H = 1 and
+   1024, T = 1, 15, 16, 17, 33 and 513 (the bf16 kernel's 16-token
+   sub-chunk and its edges), from a zero and a given state, with the
+   model's decays, none (logw = 0) and steep ones (logw = -e^4 in every
+   step), and with rows not 16 bytes aligned.
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
-   513 positions). Each kernel's launch count over this phase must be > 0.
+   513 positions). Each kernel's launch count over this phase must be > 0;
+   the counts are kept by request shape (here and in phases 7 and 8e).
 4. Rescore a few candidates through the port on the CPU in f32 (plain
    versions) and hold the card's scores against them.
 5. Time score_ce and flash_attention with CUDA events beside their plain
    versions, one PyTorch library call computing the same function, and
-   their bounds; then profile one Eqn-1 evaluation (host wall clock against
-   device busy time).
+   their bounds (score_ce also beside the bare h @ E.T product, cuBLAS, as
+   a yardstick for its main loop), with the grid, block, registers and
+   shared memory of what each launches; then profile one Eqn-1 evaluation
+   (host wall clock against device busy time).
 6. The serve step on qwen2-7b at full width, bf16, weights from --seed:
    (a) teacher-forced decode of 32 tokens from an empty cache against the
    forward pass; (b) the decode_32k cache cut from batch 128 to 16, its
@@ -35,9 +44,10 @@ Phases, in order; any failure ends the run with a non-zero exit:
    in f32, card against CPU, on 4 decode steps.
 7. rwkv6-7b at full width, bf16, weights from --seed: a bank of 24 tasks x
    2 variants = 48 candidates in 12 clusters and three lookups (33, 33 and
-   513 positions), with rwkv6_wkv and score_ce launched; rwkv6_wkv's times
-   and the profile of one evaluation; 16 teacher-forced decode steps
-   against the forward in f32: at 32 layers layer by layer (each layer fed
+   513 positions), with rwkv6_wkv and score_ce launched; rwkv6_wkv's and
+   score_ce's times at the lookup's shapes and what they launch, and the
+   profile of one evaluation; 16 teacher-forced decode steps against the
+   forward in f32: at 32 layers layer by layer (each layer fed
    the forward's input), beside how a WKV summation-order difference grows
    with depth; end to end on a 2-layer cut; that 2-layer cut, card against
    CPU, on Eqn-1 scores.
@@ -52,11 +62,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    of one step; (c) teacher-forced decode of 32 tokens against the forward,
    the pairs dropped at the real capacity factor, and the routing flips;
    (e) one Eqn-1 Prompt Bank lookup (48 candidates, 12 clusters, 33
-   positions) through score_ce; (d) a 2-layer f32 cut of the same weights,
-   card against CPU, on 4 decode steps.
+   positions) through score_ce, and score_ce's times at 33 and 513
+   positions' shapes (T = 272 and 7952); (d) a
+   2-layer f32 cut of the same weights, card against CPU, on 4 decode
+   steps.
 
 Each model is freed before the next is drawn. The line before the last is
-{"kernels": [...]}; the last line is
+{"kernels": [...]}, each kernel's numbers at the first shape of its paths
+(the others under "shapes") and its launches in all and by path and shape;
+the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 Imports nothing of JAX or of the JAX package.
 """
@@ -201,6 +215,25 @@ def phase_build() -> str:
 
 # -- phase 2 --------------------------------------------------------------------
 
+SCORE_CE_CASES = [  # T, D, V of phase 2's score_ce checks
+    (272, 768, 50257), (16 * 497, 768, 50257),       # gpt2-base at 33 and 513 positions
+    (1, 768, 50257), (273, 768, 50257),              # one row; one row past a 128-row tile
+    (272, 4096, 65536), (16 * 497, 4096, 65536),    # rwkv6-7b
+    (272, 5120, 102400), (16 * 497, 5120, 102400),  # deepseek-v2
+]
+# rwkv6_wkv's checks: B, H, T, decay, start state. The bf16 kernel's
+# sub-chunk is C = 16 tokens: T = 1, C - 1, C, C + 1 and 2C + 1. Decay
+# "drawn" is -exp(N(0, 1) - 1.5) clamped at -12 as the model's; "none" is
+# logw = 0; "steep" is logw = -exp(4), about -55, in every step.
+WKV_CASES = [
+    (16, 64, 33, "drawn", False), (16, 64, 33, "drawn", True), (16, 64, 513, "drawn", True),
+    (1, 1, 1, "drawn", True), (1, 1, 15, "drawn", False), (1, 1, 16, "none", True),
+    (1, 1, 17, "steep", True), (1, 1, 33, "drawn", True),
+    (16, 64, 1, "drawn", True), (16, 64, 15, "steep", False), (16, 64, 16, "drawn", False),
+    (16, 64, 17, "none", False), (16, 64, 33, "steep", True), (16, 64, 33, "none", True),
+    (4, 8, 513, "steep", True),
+]
+
 def phase_kernels(dev: torch.device, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
@@ -210,16 +243,19 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"score_ce": 0.0, "flash_attention": 0.0, "flash_decode": 0.0, "rwkv6_wkv": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
-        for T in (272, 16 * 497):
-            D, V = 768, 50257
+        for T, D, V in SCORE_CE_CASES:
             h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
             e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(dtype)
             lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
+            edges = torch.tensor([0, V - 1, V - 5], device=dev, dtype=torch.int32)
+            lab[:3] = edges[:T]                       # the vocabulary's edges, the ragged tile
             out = score_ce(h, e, lab)
             torch.cuda.synchronize()
-            err = check_close(f"score_ce T={T} {dtype}", out, score_ce_plain(h, e, lab), TOL[dtype])
+            err = check_close(f"score_ce T={T} D={D} V={V} {dtype}", out,
+                              score_ce_plain(h, e, lab), TOL[dtype])
             worst["score_ce"] = max(worst["score_ce"], err)
             print(f"[2] score_ce T={T} D={D} V={V} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
+            del h, e
         cases = [  # B, H, Hkv, S, L, hd, kwargs (causal unless they say otherwise)
             (16, 12, 12, 33, 33, 64, {}),
             (16, 12, 12, 513, 513, 64, {}),
@@ -277,25 +313,66 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             print(f"[2] flash_decode B={B} H={H} Hkv={Hkv} L={L} hd={hd} {kw} {dtype}: "
                   f"max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e}; max |out| {top:.3e})")
             del k, v
-        B, H, hd = 16, 64, 64
-        for T, with_state in ((33, False), (33, True), (513, True)):
+        hd = 64
+        for B, H, T, decay, with_state in WKV_CASES:
             r, k, v = (torch.randn(B, T, H, hd, generator=gen, device=dev).to(dtype)
                        .transpose(1, 2) for _ in range(3))
-            logw = (-torch.exp(torch.randn(B, T, H, hd, generator=gen, device=dev) - 1.5)
-                    ).clamp_min(-12.0).transpose(1, 2)
+            noise = torch.randn(B, T, H, hd, generator=gen, device=dev)
+            logw = {"drawn": (-torch.exp(noise - 1.5)).clamp_min(-12.0),
+                    "none": torch.zeros_like(noise),
+                    "steep": torch.full_like(noise, -float(np.exp(4.0)))}[decay].transpose(1, 2)
             u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
             s0 = (0.5 * torch.randn(B, H, hd, hd, generator=gen, device=dev)
                   if with_state else None)
             y, s1 = rwkv6_wkv(r, k, v, logw, u, s0)
             torch.cuda.synchronize()
             py, ps1 = rwkv6_wkv_plain(r, k, v, logw, u, s0)
-            name = f"rwkv6_wkv T={T} state={with_state} {dtype}"
+            name = f"rwkv6_wkv B*H={B * H} T={T} {decay} decay state={with_state} {dtype}"
             err = max(check_close(name + " y", y, py, WKV_TOL[dtype]),
                       check_close(name + " state", s1, ps1, WKV_TOL[dtype]))
             worst["rwkv6_wkv"] = max(worst["rwkv6_wkv"], err)
-            print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd} state0={'given' if with_state else 'zero'} "
-                  f"{dtype} inputs: max abs err (y and state) {err:.3e} (tol {WKV_TOL[dtype]})")
+            print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd} logw {decay} "
+                  f"state0={'given' if with_state else 'zero'} {dtype} inputs: "
+                  f"max abs err (y and state) {err:.3e} (tol {WKV_TOL[dtype]})")
+            del r, k, v, logw, noise
+        # rows that are not 16-byte multiples apart, as a [..., :H·hd] view of
+        # wider rows gives: the bf16 kernel copies them element by element
+        # instead of by cp.async
+        B, H, T = 2, 4, 37
+        def strided(dt, fn=lambda x: x):
+            wide = fn(torch.randn(B, T, H * hd + 2, generator=gen, device=dev)).to(dt)
+            return wide[..., :H * hd].view(B, T, H, hd).transpose(1, 2)
+        r, k, v = (strided(dtype) for _ in range(3))
+        logw = strided(torch.float32, lambda x: -torch.exp(x - 1.5))
+        u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
+        y, s1 = rwkv6_wkv(r, k, v, logw, u, None)
+        torch.cuda.synchronize()
+        py, ps1 = rwkv6_wkv_plain(r, k, v, logw, u, None)
+        name = f"rwkv6_wkv T={T} row stride {r.stride(2)} {dtype}"
+        err = max(check_close(name + " y", y, py, WKV_TOL[dtype]),
+                  check_close(name + " state", s1, ps1, WKV_TOL[dtype]))
+        worst["rwkv6_wkv"] = max(worst["rwkv6_wkv"], err)
+        print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd}, rows {r.stride(2)} elements apart, "
+              f"{dtype} inputs: max abs err (y and state) {err:.3e} (tol {WKV_TOL[dtype]})")
     return worst
+
+
+def eval_shape(score_fn, positions: int) -> str:
+    """The shape label of one Eqn-1 evaluation: its positions and the rows
+    it hands score_ce (eval rows × token positions, the prompt's left out)."""
+    rows, tokens = score_fn.eval_batch["tokens"].shape
+    return f"{positions} positions (score_ce T={rows * tokens})"
+
+
+@contextlib.contextmanager
+def counted(kernels: dict, by_shape: dict, label: str):
+    """Adds each kernel's launches inside the block to by_shape[name][label]."""
+    before = {name: fn.launches for name, fn in kernels.items()}
+    yield
+    for name, fn in kernels.items():
+        n = fn.launches - before[name]
+        if n:
+            by_shape[name][label] = by_shape[name].get(label, 0) + n
 
 
 # -- phase 3 --------------------------------------------------------------------
@@ -322,9 +399,12 @@ def phase_slice(dev: torch.device, seed: int):
     print(f"[3] {cfg.name}: {cfg.num_layers} layers, d={d}, H={cfg.num_heads}, "
           f"V={cfg.vocab_size}, {cfg.dtype}, weights from seed {seed}")
 
+    kernels = {"score_ce": score_ce, "flash_attention": flash_attention}
+    by_shape = {name: {} for name in kernels}
     score_ce.launches = flash_attention.launches = 0
     t0 = time.perf_counter()
-    bank = build_bank(model, seed_prompts, variants_per_prompt=4, seed=seed)
+    with counted(kernels, by_shape, "bank build"):
+        bank = build_bank(model, seed_prompts, variants_per_prompt=4, seed=seed)
     torch.cuda.synchronize()
     print(f"[3] bank: {len(bank.entries)} candidates, {len(bank.medoid_ids)} clusters, "
           f"features + clustering {time.perf_counter() - t0:.3f} s")
@@ -334,7 +414,8 @@ def phase_slice(dev: torch.device, seed: int):
     for task in requests:
         score_fn = make_score_fn(model, task, tune_cfg)
         positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
-        res = bank.lookup(score_fn)
+        with counted(kernels, by_shape, eval_shape(score_fn, positions)):
+            res = bank.lookup(score_fn)
         if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
             raise AssertionError(f"lookup for {task.task_id} gave {res}")
         print(f"[3] request {task.task_id} ({positions} positions): origin={res.entry.origin} "
@@ -342,11 +423,11 @@ def phase_slice(dev: torch.device, seed: int):
               f"latency={res.latency_s:.3f} s")
         results.append((task, res))
     launches = {"score_ce": score_ce.launches, "flash_attention": flash_attention.launches}
-    print(f"[3] kernel launches on the lookup path: {launches}")
+    print(f"[3] kernel launches on the lookup path: {launches}; by shape {by_shape}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the lookup path")
-    return model, bank, results, launches
+    return model, bank, results, {"total": launches, "by_shape": by_shape}
 
 
 # -- phase 4 --------------------------------------------------------------------
@@ -388,25 +469,11 @@ def bound(flops: float, nbytes: float, peak_flops: float):
 
 def phase_times(model, seed: int) -> dict:
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
-    from repro_torch.kernels.score_ce import score_ce, score_ce_plain
 
     dev, gen = model.device, torch.Generator(device=model.device).manual_seed(seed)
     emb = model.embedding.detach()                     # (V, D) bf16, 77 MB
-    V, D = emb.shape
-    rows = {}
-    for T in (16 * 17, 16 * 497):
-        h = torch.randn(T, D, generator=gen, device=dev).to(emb.dtype)
-        lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
-        flops = 2.0 * T * V * D
-        nbytes = (T * D + V * D) * emb.element_size() + T * 4 + T * 4
-        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
-        row = {"shape": f"T={T} D={D} V={V} bf16",
-               "ms": time_ms(lambda: score_ce(h, emb, lab)),
-               "plain_ms": time_ms(lambda: score_ce_plain(h, emb, lab)),
-               "library_ms": time_ms(lambda: F.cross_entropy(
-                   (h @ emb.T).float(), lab.long(), reduction="none")),
-               "bound_ms": b_ms, "bound_by": b_by}
-        rows.setdefault("score_ce", []).append(row)
+    rows = {"score_ce": score_ce_rows("[5]", model.cfg.name, emb, (16 * 17, 16 * 497), gen,
+                                      gemm=True)}
     cfg = model.cfg
     B, H, hd = 16, cfg.num_heads, cfg.resolved_head_dim()
     for S in (33, 513):
@@ -426,32 +493,75 @@ def phase_times(model, seed: int) -> dict:
     sdpa = lambda: F.scaled_dot_product_attention(q, k, v, is_causal=True)
     library_yardstick(f"[5] flash_attention {rows['flash_attention'][-1]['shape']}",
                       lambda: flash_attention(q, k, v, causal=True), sdpa)
-    for name, rs in rows.items():
-        for r in rs:
-            print(f"[5] {name} {r['shape']}: kernel {r['ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
-                  f"library {r['library_ms']:.4f} ms, bound {r['bound_ms']:.4f} ms ({r['bound_by']})")
+    for r in rows["flash_attention"]:
+        print(f"[5] flash_attention {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
+              f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
 
 
-def kernel_launches(label: str, fn) -> None:
-    """The kernels one call of ``fn`` launches, each with its launch shape
-    and device time, from a profiler trace written under build/. A fill
-    kernel runs first inside the trace, and is left out of the listing: the
-    profiler can miss the first kernel it sees."""
+def score_ce_rows(label: str, model_name: str, emb: torch.Tensor, Ts, gen,
+                  gemm: bool = False) -> list:
+    """score_ce at (T, D, V) for each T against ``emb`` (V, D): the kernel,
+    its plain version, the library call (``F.cross_entropy`` of the bf16
+    ``h @ E.T`` in f32) and the bound; with ``gemm`` also the bare
+    ``h @ E.T`` (cuBLAS: a yardstick for the main loop, not the library
+    column). Prints the kernels each launch runs."""
+    from repro_torch.kernels.score_ce import score_ce, score_ce_plain
+
+    V, D = emb.shape
+    rows = []
+    for T in Ts:
+        h = torch.randn(T, D, generator=gen, device=emb.device).to(emb.dtype)
+        lab = torch.randint(0, V, (T,), generator=gen, device=emb.device, dtype=torch.int32)
+        flops = 2.0 * T * V * D
+        nbytes = (T * D + V * D) * emb.element_size() + T * 4 + T * 4
+        b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
+        row = {"shape": f"{model_name}: T={T} D={D} V={V} bf16",
+               "ms": time_ms(lambda: score_ce(h, emb, lab)),
+               "plain_ms": time_ms(lambda: score_ce_plain(h, emb, lab), reps=5),
+               "library_ms": time_ms(lambda: F.cross_entropy(
+                   (h @ emb.T).float(), lab.long(), reduction="none"), reps=5),
+               "bound_ms": b_ms, "bound_by": b_by}
+        extra = ""
+        if gemm:
+            row["gemm_ms"] = time_ms(lambda: h @ emb.T)
+            extra = f", bare h @ E.T (cuBLAS) {row['gemm_ms']:.4f} ms"
+        print(f"{label} score_ce {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms{extra}, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        kernel_launches(f"{label} score_ce T={T} D={D} V={V}", lambda: score_ce(h, emb, lab))
+        rows.append(row)
+        del h, lab
+    return rows
+
+
+def kernel_launches(label: str, fn, calls: int = 3) -> None:
+    """The kernels a call of ``fn`` launches, each with its launch shape and
+    device time, from a profiler trace of ``calls`` calls written under
+    build/, each kernel listed once (the profiler can drop a kernel's record,
+    so one call alone may list too few). A fill kernel runs first inside the
+    trace and is left out of the listing."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         torch.zeros(1, device="cuda")
-        fn()
+        for _ in range(calls):
+            fn()
         torch.cuda.synchronize()
     path = ROOT / "build" / "launches.trace.json"
     path.parent.mkdir(exist_ok=True)
     prof.export_chrome_trace(str(path))
+    seen = set()
     for e in json.loads(path.read_text())["traceEvents"]:
         if e.get("cat") == "kernel" and "FillFunctor" not in e["name"]:
             a = e["args"]
+            key = (e["name"], str(a.get("grid")))
+            if key in seen:
+                continue
+            seen.add(key)
             print(f"{label}: {e['dur']:.1f} us grid {a.get('grid')} block {a.get('block')} "
                   f"{a.get('registers per thread')} registers {a.get('shared memory')} B shared  "
                   f"{e['name'][:90]}")
@@ -796,9 +906,12 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     requests = [tasks[3], tasks[14],
                 make_tasks(input_len=248, target_len=248)[9]]   # 33, 33, 513 positions
 
+    kernels = {"rwkv6_wkv": rwkv6_wkv, "score_ce": score_ce}
+    by_shape = {name: {} for name in kernels}
     rwkv6_wkv.launches = score_ce.launches = 0
     t0 = time.perf_counter()
-    bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
+    with counted(kernels, by_shape, "bank build"):
+        bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
     torch.cuda.synchronize()
     print(f"[7] bank: {len(bank.entries)} candidates (24 tasks x 2 variants), "
           f"{len(bank.medoid_ids)} clusters, features + clustering "
@@ -809,7 +922,8 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     for task in requests:
         score_fn = make_score_fn(model, task, tune_cfg)
         positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
-        res = bank.lookup(score_fn)
+        with counted(kernels, by_shape, eval_shape(score_fn, positions)):
+            res = bank.lookup(score_fn)
         if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
             raise AssertionError(f"lookup for {task.task_id} gave {res}")
         print(f"[7] request {task.task_id} ({positions} positions): origin={res.entry.origin} "
@@ -817,7 +931,7 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
               f"latency={res.latency_s:.3f} s")
         results.append((task, res, score_fn))
     launches = {"rwkv6_wkv": rwkv6_wkv.launches, "score_ce": score_ce.launches}
-    print(f"[7] kernel launches on the lookup path: {launches}")
+    print(f"[7] kernel launches on the lookup path: {launches}; by shape {by_shape}")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched on the rwkv6 lookup path")
@@ -840,6 +954,10 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
         print(f"[7] rwkv6_wkv {rows[-1]['shape']}: kernel {rows[-1]['ms']:.4f} ms, plain "
               f"{rows[-1]['plain_ms']:.4f} ms, no library call, bound {b_ms:.4f} ms ({b_by})")
+        kernel_launches(f"[7] rwkv6_wkv T={T}", lambda: rwkv6_wkv(r, k, v, logw, u, None))
+        del r, k, v, logw
+    score_rows = score_ce_rows("[7]", cfg.name, model.output_embedding().detach(),
+                               (16 * 17, 16 * 497), gen)
     task, res, score_fn = results[0]
     before = rwkv6_wkv.launches
     score_fn(res.entry)
@@ -882,7 +1000,8 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     free_card()
     if failed:
         raise AssertionError(f"rwkv6 card scores disagree with the CPU f32 path for {failed}")
-    return {"rows": rows, "profiles": profiles, "launches": launches}
+    return {"rows": rows, "profiles": profiles, "launches": launches, "by_shape": by_shape,
+            "score_rows": score_rows}
 
 
 # -- phase 8 --------------------------------------------------------------------
@@ -1183,16 +1302,19 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
     seed_prompts = {t.task_id: rng.normal(0, 0.5 / np.sqrt(cfg.d_model),
                                           (tune_cfg.prompt_len, cfg.d_model)).astype(np.float32)
                     for t in tasks}
+    kernels, by_shape = {"score_ce": score_ce}, {"score_ce": {}}
     score_ce.launches = 0
     t0 = time.perf_counter()
-    bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
+    with counted(kernels, by_shape, "bank build"):
+        bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
     torch.cuda.synchronize()
     bank_s = time.perf_counter() - t0
     if len(bank.entries) != 48 or len(bank.medoid_ids) != 12:
         raise AssertionError("bank does not hold 48 candidates in 12 clusters")
     score_fn = make_score_fn(model, tasks[7], tune_cfg)
     positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
-    res = bank.lookup(score_fn)
+    with counted(kernels, by_shape, eval_shape(score_fn, positions)):
+        res = bank.lookup(score_fn)
     if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
         raise AssertionError(f"lookup for {tasks[7].task_id} gave {res}")
     print(f"[8e] bank of {len(bank.entries)} candidates in {len(bank.medoid_ids)} clusters "
@@ -1203,7 +1325,9 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
     if score_ce.launches <= 0:
         raise AssertionError("score_ce was never launched on the deepseek-v2 lookup")
     out.update(lookup_s=res.latency_s, lookup_evals=res.evaluations,
-               score_ce_launches=score_ce.launches)
+               score_ce_launches=score_ce.launches, score_ce_by_shape=by_shape["score_ce"],
+               score_rows=score_ce_rows("[8e]", cfg.name, model.output_embedding().detach(),
+                                        (16 * 17, 16 * 497), gen))
 
     # (d) a 2-layer cut of the same weights in f32, card against CPU
     state = cut_state(model, 2)
@@ -1229,7 +1353,9 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
-    the shape of the path that launches it, and that path's launch count."""
+    the first shape of the paths that launch it (the other shapes under
+    "shapes"), and its launches on those paths' runs, in all and by path
+    and shape."""
     replaces = {"score_ce": "src/repro/kernels/score_ce.py:101",
                 "flash_attention": "src/repro/kernels/flash_attention.py:109",
                 "flash_decode": "src/repro/kernels/flash_decode.py:157",
@@ -1239,21 +1365,25 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                "flash_decode": "flash_decode", "rwkv6_wkv": "rwkv_wkv",
                "mla_decode": "mla_decode"}
     worst = {**worst, "mla_decode": mla["worst"]}
-    paths = {  # name -> (row at the path's shape, launches on the path, longer shape)
-        "score_ce": (rows["score_ce"][0], launches["score_ce"], rows["score_ce"][1]),
-        "flash_attention": (rows["flash_attention"][0], launches["flash_attention"],
-                            rows["flash_attention"][1]),
-        "flash_decode": (serve, serve["launches"], None),
-        "rwkv6_wkv": (rwkv["rows"][0], rwkv["launches"]["rwkv6_wkv"], rwkv["rows"][1]),
-        "mla_decode": (mla["rows"][0], mla_serve["launches"], mla["rows"][1]),
+    path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
+    paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
+        "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"],
+                     {**path("gpt2-base", launches["by_shape"]["score_ce"]),
+                      **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
+                      **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"])}),
+        "flash_attention": (rows["flash_attention"],
+                            path("gpt2-base", launches["by_shape"]["flash_attention"])),
+        "flash_decode": ([serve], {"qwen2-7b, serve steps": serve["launches"]}),
+        "rwkv6_wkv": (rwkv["rows"], path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"])),
+        "mla_decode": (mla["rows"], {"deepseek-v2-236b, serve steps": mla_serve["launches"]}),
     }
+    keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{sources[name]}.cu",
-             "replaces": replaces[name], "launches": n, "max_abs_err": worst[name],
-             "ms": row["ms"], "plain_ms": row["plain_ms"], "bound_ms": row["bound_ms"],
-             "bound_by": row["bound_by"], "library_ms": row["library_ms"],
-             "shape": row["shape"], "long_form": longer}
-            for name, (row, n, longer) in paths.items()]
+             "replaces": replaces[name], "launches": sum(by_shape.values()),
+             "launches_by_shape": by_shape, "max_abs_err": worst[name],
+             **{k: rs[0][k] for k in keys}, "shapes": [{k: r[k] for k in keys} for r in rs[1:]]}
+            for name, (rs, by_shape) in paths.items()]
 
 
 def main() -> None:

@@ -17,8 +17,10 @@ import torch
 
 from repro_torch.kernels import _build
 
-ROWS, COLS = 64, 64          # token rows and vocabulary columns of one block step
-BLOCKS_PER_SM = 4            # vocabulary splits are added until the card holds this many blocks
+# A block's token rows, the vocabulary columns of one of its tiles, and the
+# blocks an SM holds, by element type (csrc/score_ce.cu): vocabulary splits
+# are added until the card holds that many blocks.
+TILES = {torch.bfloat16: (128, 256, 1), torch.float32: (64, 64, 4)}
 
 
 def score_ce_plain(hidden: torch.Tensor, emb: torch.Tensor,
@@ -37,12 +39,13 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
-def num_splits(n_tok: int, vocab: int, device: torch.device) -> int:
-    """Vocabulary splits per token tile: enough blocks to fill the card,
-    never more than there are vocabulary tiles."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    row_tiles = -(-n_tok // ROWS)
-    return max(1, min(-(-vocab // COLS), -(-BLOCKS_PER_SM * sms // row_tiles)))
+def num_splits(n_tok: int, vocab: int, sms: int, dtype: torch.dtype) -> int:
+    """Vocabulary splits per row tile: as many blocks as the card holds at
+    once (never a partial second wave), never more splits than there are
+    vocabulary tiles."""
+    rows, cols, per_sm = TILES[dtype]
+    row_tiles = -(-n_tok // rows)
+    return max(1, min(-(-vocab // cols), per_sm * sms // row_tiles))
 
 
 def score_ce(hidden: torch.Tensor, emb: torch.Tensor,
@@ -73,7 +76,8 @@ def score_ce(hidden: torch.Tensor, emb: torch.Tensor,
             raise ValueError("score_ce: inputs must be contiguous")
     _build.check_launchable("score_ce", hidden, emb, labels)
 
-    n_split = num_splits(T, V, hidden.device)
+    n_split = num_splits(T, V, torch.cuda.get_device_properties(hidden.device).multi_processor_count,
+                         hidden.dtype)
     part = torch.empty((3, n_split, T), dtype=torch.float32, device=hidden.device)
     nll = torch.empty((T,), dtype=torch.float32, device=hidden.device)
     rc = _lib().score_ce_launch(

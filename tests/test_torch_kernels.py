@@ -20,7 +20,7 @@ from repro_torch.kernels import ops
 from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
 from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_plain
-from repro_torch.kernels.score_ce import score_ce, score_ce_plain
+from repro_torch.kernels.score_ce import TILES, num_splits, score_ce, score_ce_plain
 
 TOL = 2e-5   # f32, as tests/test_kernels.py
 
@@ -46,6 +46,46 @@ def test_score_ce_plain_matches_pallas_and_ref(T, D, V, bt, bv):
     _close(ours, jscore_ce(jnp.asarray(h), jnp.asarray(e), jnp.asarray(lab),
                            bt=bt, bv=bv, interpret=True))
     _close(ours, score_ce_ref(jnp.asarray(h), jnp.asarray(e), jnp.asarray(lab)))
+
+
+@pytest.mark.parametrize("T,D,V,bv", [
+    (6, 64, 600, 200),        # V = 2·256 + 88: a ragged last 256-column tile
+    (33, 32, 520, 520),       # V = 2·256 + 8: eight columns in the last tile
+    (16, 48, 1000, 250),      # V = 15·64 + 40 (the f32 tiles' ragged edge)
+])
+def test_score_ce_plain_matches_pallas_at_vocabulary_edges(T, D, V, bv):
+    """Labels on the vocabulary's first and last columns and inside the
+    CUDA kernels' ragged last tile (V not a multiple of their 256- or
+    64-column tiles; the Pallas kernel takes a tile bv that divides V)."""
+    rng = np.random.default_rng(V + T)
+    h = rng.normal(size=(T, D)).astype(np.float32)
+    e = (rng.normal(size=(V, D)) * 0.05).astype(np.float32)
+    lab = rng.integers(0, V, size=(T,)).astype(np.int32)
+    lab[:3] = [0, V - 1, V - 5]
+    ours = score_ce(torch.from_numpy(h), torch.from_numpy(e), torch.from_numpy(lab))
+    _close(ours, jscore_ce(jnp.asarray(h), jnp.asarray(e), jnp.asarray(lab),
+                           bt=8, bv=bv, interpret=True))
+    _close(ours, score_ce_ref(jnp.asarray(h), jnp.asarray(e), jnp.asarray(lab)))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("T,V", [(1, 50257), (272, 50257), (7952, 50257), (272, 65536),
+                                 (272, 102400), (40000, 50257)])
+def test_score_ce_splits_fill_the_card_in_one_wave(dtype, T, V):
+    """The vocabulary splits make at most one wave of blocks on a 132-SM
+    card, at least one split, no more splits than vocabulary tiles, and a
+    full card where the row tiles leave room: blocks that share a split run
+    together, which the bf16 kernel's L2 reuse depends on."""
+    sms = 132
+    rows, cols, per_sm = TILES[dtype]
+    n = num_splits(T, V, sms, dtype)
+    row_tiles, vocab_tiles = -(-T // rows), -(-V // cols)
+    assert 1 <= n <= vocab_tiles
+    if row_tiles <= per_sm * sms:
+        assert row_tiles * n <= per_sm * sms
+        assert row_tiles * (n + 1) > per_sm * sms or n == vocab_tiles
+    else:
+        assert n == 1
 
 
 def test_fused_score_ce_matches_jax_adapter():

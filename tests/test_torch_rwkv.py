@@ -41,7 +41,7 @@ from repro_torch.config import TuneConfig
 from repro_torch.configs import smoke_config
 from repro_torch.core import PromptBank, PromptEntry, build_bank, make_score_fn
 from repro_torch.kernels import ops
-from repro_torch.kernels.rwkv_wkv import rwkv6_wkv
+from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_plain
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models.ssm import RWKV6TimeMix, rwkv6_decode, rwkv6_forward
 from repro_torch.train import lpt_loss, token_cross_entropy
@@ -131,6 +131,152 @@ def test_rwkv6_wkv_plain_matches_pallas_and_ref(T, with_state):
     ry, rs = rwkv6_wkv_ref(flat(r), flat(k), flat(v), flat(logw), uu, flat(state))
     _close(y.reshape(B * H, T, hd), ry)
     _close(s.reshape(B * H, hd, hd), rs)
+
+
+# -- the bf16 CUDA kernel's chunk decomposition, mirrored --------------------------
+
+SUB = 16        # the kernel's sub-chunk (csrc/rwkv_wkv.cu kSub)
+GUARD = 60.0    # its kMinDecay = e^{-GUARD}: past it a sub-chunk's scores go element by element
+
+
+def _tf32(x):
+    """x as the tensor core reads a TF32 operand: its top 19 bits (sign,
+    exponent, 10 mantissa bits), the rest dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's split x = hi + lo: hi truncated to TF32, lo = x - hi
+    (exact in f32), read by the tensor core as TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b on the tensor cores with both operands split: lo·hi + hi·lo + hi·hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm2(a, b):
+    """a @ b with a split and b exact in TF32 (bf16 values)."""
+    ah, al = _split(a)
+    return al @ b + ah @ b
+
+
+def wkv_chunked_mirror(r, k, v, logw, u, state):
+    """What the bf16 kernel computes, written out in f32: sub-chunks of 16
+    tokens (zero-padded: logw = 0, r = k = v = 0); per channel w = e^{logw}
+    and every decay factor a running product of w (e^{b_t} from the
+    sub-chunk's start, e^{c_15 - c_t} from its end, e^{c_15} the product of
+    the two halves' products); keys stored as k ⊙ e^{-c} where e^{c_15} >=
+    e^{-GUARD} (undone by kscale = e^{c_15} in the update), else as
+    k ⊙ e^{c_15 - c}; the scores A by the factored product when every
+    channel is inside the guard, else element by element with running
+    products; the products in TF32 with split operands."""
+    B, H, T, hd = r.shape
+    n = -(-T // SUB)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, n * SUB - T))
+    r, k, v, logw = pad(r), pad(k), pad(v), pad(logw)
+    S = state.clone() if state is not None else torch.zeros(B, H, hd, hd)
+    tri = torch.tril(torch.ones(SUB, SUB, dtype=torch.bool), -1)
+    eye = torch.eye(SUB, dtype=torch.bool)
+    min_decay = torch.tensor(np.exp(-GUARD), dtype=torch.float32)
+    ys = []
+    for c in range(n):
+        sl = slice(c * SUB, (c + 1) * SUB)
+        rc, kc, vc = r[:, :, sl], k[:, :, sl], v[:, :, sl]
+        w = torch.exp(logw[:, :, sl])
+        eb, es = torch.empty_like(w), torch.empty_like(w)
+        run = torch.ones(B, H, hd)
+        for t in range(SUB):
+            eb[:, :, t] = run
+            run = run * w[:, :, t]
+        run = torch.ones(B, H, hd)
+        for t in range(SUB - 1, -1, -1):
+            es[:, :, t] = run
+            run = run * w[:, :, t]
+        ec = eb[:, :, SUB // 2] * es[:, :, SUB // 2 - 1]      # the two halves' products
+        safe = ec >= min_decay
+        einv = torch.where(safe, 1.0 / ec, torch.ones_like(ec))
+        kscale = torch.where(safe, ec, torch.ones_like(ec))
+        rt, kt = rc * eb, kc * (es * einv[:, :, None])
+        diag = (rc * u[None, :, None] * kc).sum(-1)
+        a_fact = torch.where(tri, _mm3(rt, kt.transpose(-1, -2)), 0.0)
+        a_elem = torch.zeros(B, H, SUB, SUB)
+        for s_ in range(SUB):
+            kk = kc[:, :, s_].clone()
+            for t in range(s_ + 1, SUB):
+                if t >= s_ + 2:
+                    kk = kk * w[:, :, t - 1]
+                a_elem[:, :, t, s_] = (rc[:, :, t] * kk).sum(-1)
+        steep = (~safe).any(-1)[:, :, None, None]
+        A = torch.where(steep, a_elem, a_fact) + torch.where(eye, diag[..., None], 0.0)
+        ys.append(_mm3(rt, S) + _mm2(A, vc))
+        S = ec[..., None] * S + kscale[..., None] * _mm2(kt.transpose(-1, -2), vc)
+    return torch.cat(ys, dim=2)[:, :, :T], S
+
+
+def wkv_float64(r, k, v, logw, u, state):
+    """The sequential recurrence in float64 (numpy), the yardstick of the
+    f32 versions."""
+    B, H, T, hd = r.shape
+    s = np.zeros((B, H, hd, hd)) if state is None else np.asarray(state, np.float64)
+    r, k, v = (np.asarray(a, np.float64) for a in (r, k, v))
+    w, u = np.exp(np.asarray(logw, np.float64)), np.asarray(u, np.float64)
+    ys = []
+    for t in range(T):
+        kv = k[:, :, t, :, None] * v[:, :, t, None, :]
+        ys.append(np.einsum("bhd,bhde->bhe", r[:, :, t], s + u[None, :, :, None] * kv))
+        s = w[:, :, t, :, None] * s + kv
+    return np.stack(ys, axis=2), s
+
+
+def _bf16(a):
+    return torch.from_numpy(a).bfloat16().float()
+
+
+@pytest.mark.parametrize("T", [1, SUB - 1, SUB, SUB + 1, 2 * SUB + 1])
+@pytest.mark.parametrize("decay", ["drawn", "none", "steep", "mixed", "edge"])
+def test_chunked_wkv_mirror_matches_plain_and_pallas(T, decay):
+    """The kernel's decomposition at the sub-chunk's edges, held to 1e-5 in
+    f32 against the sequential recurrence (float64 and f32) and the Pallas
+    kernel (interpret mode, chunk 16). Decays: the model's draws; none
+    (logw = 0); steep (logw = -e^4 ≈ -55 in every step: element-by-element
+    scores); mixed (steep in half the channels: element-by-element scores,
+    and a state update that mixes both key scalings); edge (logw = -3.7, a
+    sub-chunk total of -59.2 just inside the guard: factors up to e^59).
+
+    The Pallas kernel exponentiates differences of f32 cumulative sums,
+    which err by |sum|·2^-24: at steep decays (sums near -880) it is itself
+    up to 5e-5 from the float64 recurrence. Against it the bound is 1e-5
+    plus its own distance from float64, measured here."""
+    B, H, hd = 1, 2, 64
+    r, k, v, logw, u, state = _wkv_inputs(100 + T, B, H, T, hd)
+    logw = {"drawn": logw, "none": np.zeros_like(logw),
+            "steep": np.full_like(logw, -np.exp(4.0)),
+            "mixed": np.where(np.arange(hd) % 2 == 0, -np.exp(4.0), logw),
+            "edge": np.full_like(logw, -3.7)}[decay].astype(np.float32)
+    rt, kt, vt = _bf16(r), _bf16(k), _bf16(v)       # the kernel's bf16 inputs, widened
+    lt, ut = torch.from_numpy(logw), torch.from_numpy(u)
+    st = torch.from_numpy(state) if T % 2 else None   # odd T from a given state
+    y, s = wkv_chunked_mirror(rt, kt, vt, lt, ut, st)
+    y64, s64 = wkv_float64(rt.numpy(), kt.numpy(), vt.numpy(), logw, u,
+                           None if st is None else state)
+    _close(y, y64)
+    _close(s, s64)
+    py, ps = rwkv6_wkv_plain(rt, kt, vt, lt, ut, st)
+    _close(y, py)
+    _close(s, ps)
+    flat = lambda a: jnp.asarray(np.asarray(a).reshape(B * H, *a.shape[2:]))
+    uu = jnp.asarray(np.broadcast_to(u[None], (B, H, hd)).reshape(B * H, hd))
+    s0 = np.zeros((B, H, hd, hd), np.float32) if st is None else state
+    jy, js = jrwkv6_wkv(flat(rt), flat(kt), flat(vt), flat(logw), uu, flat(s0), chunk=16,
+                        interpret=True)
+    for ours, ref, exact in ((y.reshape(B * H, T, hd), jy, y64), (s.reshape(B * H, hd, hd), js, s64)):
+        ref, exact = np.asarray(ref, np.float64), exact.reshape(np.shape(ref))
+        own = float(np.max(np.abs(ref - exact) / (1 + np.abs(exact))))
+        _close(ours, ref, TOL + own)
 
 
 def test_wkv_matches_jax_adapter():
