@@ -6,7 +6,9 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc for sm_90a (one
-   nvcc per source, in parallel) and print the card's name and power limit.
+   nvcc per source, in parallel), print each kernel's registers and spills
+   as ptxas reports them and mla_decode's dynamic shared memory, and print
+   the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
    and f32: score_ce at gpt2-base's shapes (T = 272 and 7952, D = 768,
    V = 50257), at T = 1 and 273 (one row; one past a 128-row tile), at
@@ -53,10 +55,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    CPU, on Eqn-1 scores.
 8. deepseek-v2-236b (MLA + MoE) at full width, bf16, weights from --seed,
    cut in depth to 1 dense + 8 MoE layers (7 if 8 leave under 6 GiB free):
-   (a) mla_decode against its plain version in bf16 and f32 at H = 128, 64
-   and 16, B = 1, 2 and 16, kv_len 1, 37, ragged and whole, and q_pos <
-   kv_len - 1; its times, beside the plain version, one SDPA call and the
-   bound, at the decode_32k (B = 16) and long_500k (B = 1) shapes; (b) the
+   (a) mla_decode against its plain version in bf16 and f32 at H = 128, 64,
+   40 and 16, B = 1, 2, 3 and 16, kv_len 1, 37, ragged and whole, at the
+   bf16 kernel's 64-row tile's edges (63, 64, 65) and over both of its ring
+   stages in one split, with every split one row, with q_pos < kv_len - 1,
+   and with ckv and kpe as views of one wider row; a view TMA cannot load
+   refused; its times, beside the plain version, one SDPA call and the
+   bound, and what it launches, at the decode_32k (B = 16) and long_500k
+   (B = 1) shapes; (b) the
    decode_32k cache cut from batch 128 to 16, its first 32760 slots seeded,
    then 8 serve steps with mla_decode launched once a layer, and the profile
    of one step; (c) teacher-forced decode of 32 tokens against the forward,
@@ -208,6 +214,9 @@ def phase_build() -> str:
                 entry = line.split("'")[1]                 # the mangled kernel name
             elif "registers" in line or "spill" in line:
                 print(f"[1] ptxas {name} {entry}: {line.strip()}")
+    mla = _build.load("mla_decode")
+    print(f"[1] mla_decode dynamic shared memory: bf16 {mla.mla_decode_smem_bytes(1)} B, "
+          f"f32 {mla.mla_decode_smem_bytes(0)} B a block")
     card = gpu_line()
     print(card)
     return card
@@ -333,7 +342,8 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             worst["rwkv6_wkv"] = max(worst["rwkv6_wkv"], err)
             print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd} logw {decay} "
                   f"state0={'given' if with_state else 'zero'} {dtype} inputs: "
-                  f"max abs err (y and state) {err:.3e} (tol {WKV_TOL[dtype]})")
+                  f"max abs err (y and state) {err:.3e} (rtol {WKV_TOL[dtype]}, "
+                  f"atol {WKV_TOL[dtype]:.2e})")
             del r, k, v, logw, noise
         # rows that are not 16-byte multiples apart, as a [..., :H·hd] view of
         # wider rows gives: the bf16 kernel copies them element by element
@@ -353,7 +363,8 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
                   check_close(name + " state", s1, ps1, WKV_TOL[dtype]))
         worst["rwkv6_wkv"] = max(worst["rwkv6_wkv"], err)
         print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd}, rows {r.stride(2)} elements apart, "
-              f"{dtype} inputs: max abs err (y and state) {err:.3e} (tol {WKV_TOL[dtype]})")
+              f"{dtype} inputs: max abs err (y and state) {err:.3e} (rtol {WKV_TOL[dtype]}, "
+              f"atol {WKV_TOL[dtype]:.2e})")
     return worst
 
 
@@ -1042,15 +1053,34 @@ def sdpa_mla(q_lat, q_pe, ckv, kpe, live: int, scale: float):
     raise AssertionError("no SDPA backend computes the MLA decode call")
 
 
-MLA_DECODE_CASES = [  # B, H, L, kwargs of phase 8a's parity checks
-    (16, 128, 32768, {"kv_len": 32768}),             # deepseek-v2 serve shape, whole cache
-    (16, 128, 32768, {"kv_len": 20001}),             # ragged against the 32-row tile
-    (2, 64, 4096, {"kv_len": 37}),                   # kimi-k2's 64 heads
-    (1, 16, 4096, {"kv_len": 1, "splits": 8}),       # one live row: 7 of 8 splits empty
-    (2, 128, 4096, {"kv_len": 1001, "q_pos": 500}),  # q_pos < kv_len - 1
-    (1, 64, 2000, {"kv_len": 2000}),
-    (16, 16, 1000, {"kv_len": 999}),
+MLA_DECODE_CASES = [  # B, H, L, kwargs of phase 8a's parity checks, cache layout
+    (16, 128, 32768, {"kv_len": 32768}, "apart"),             # deepseek-v2 serve shape, whole cache
+    (16, 128, 32768, {"kv_len": 20001}, "apart"),             # ragged against the 64-row tile
+    (2, 64, 4096, {"kv_len": 37}, "apart"),                   # kimi-k2's 64 heads
+    (1, 16, 4096, {"kv_len": 1, "splits": 8}, "apart"),       # one live row: 7 of 8 splits empty
+    (2, 128, 4096, {"kv_len": 1001, "q_pos": 500}, "apart"),  # q_pos < kv_len - 1
+    (1, 64, 2000, {"kv_len": 2000}, "apart"),
+    (16, 16, 1000, {"kv_len": 999}, "apart"),
+    # the edges of the bf16 kernel's 64-row tile and its 2-stage ring, in one split
+    (2, 128, 256, {"kv_len": 63, "splits": 1}, "apart"),
+    (2, 128, 256, {"kv_len": 64, "splits": 1}, "apart"),
+    (2, 128, 256, {"kv_len": 65, "splits": 1}, "apart"),
+    (1, 128, 512, {"kv_len": 321, "splits": 1}, "apart"),     # 6 tiles: each stage thrice
+    (3, 40, 1000, {"kv_len": 700}, "apart"),                  # H = 40: 24 heads of TMA's zeros
+    (1, 128, 4096, {"kv_len": 3, "splits": 3}, "apart"),      # every split one row
+    # ckv and kpe as views of one (B, L, 584) row, 8 elements in: bases and
+    # strides stay 16-byte multiples, so the kernel takes them
+    (2, 128, 3000, {"kv_len": 2999}, "fused"),
 ]
+
+
+def latent_cache(B: int, L: int, dtype, gen, dev, layout: str):
+    """(ckv (B, L, 512), kpe (B, L, 64)) drawn from N(0, 1): two tensors
+    ("apart"), or views of one wider row ("fused")."""
+    if layout == "fused":
+        row = torch.randn(B, L, 584, generator=gen, device=dev).to(dtype)
+        return row[..., 8:520], row[..., 520:]
+    return tuple(torch.randn(B, L, d, generator=gen, device=dev).to(dtype) for d in (512, 64))
 
 
 def phase_mla_kernel(dev: torch.device, seed: int) -> dict:
@@ -1060,25 +1090,34 @@ def phase_mla_kernel(dev: torch.device, seed: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(seed + 3)
     scale = 1.0 / (128 + 64) ** 0.5
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
     worst = 0.0
     for dtype in (torch.bfloat16, torch.float32):
-        for B, H, L, kw in MLA_DECODE_CASES:
+        for B, H, L, kw, layout in MLA_DECODE_CASES:
             ql, qp = (torch.randn(B, H, d, generator=gen, device=dev).to(dtype) for d in (512, 64))
-            ckv, kpe = (torch.randn(B, L, d, generator=gen, device=dev).to(dtype)
-                        for d in (512, 64))
+            ckv, kpe = latent_cache(B, L, dtype, gen, dev, layout)
             out = mla_decode(ql, qp, ckv, kpe, scale=scale, **kw)
             torch.cuda.synchronize()
             ref = mla_decode_plain(ql, qp, ckv, kpe, scale=scale, **kw)
             top = ref.float().abs().max().item()
             rtol, atol = ((DECODE_BF16_RTOL, DECODE_BF16_ATOL * top)
                           if dtype == torch.bfloat16 else (TOL[dtype], TOL[dtype]))
-            err = check_close(f"mla_decode {(B, H, L)} {kw} {dtype}", out, ref, rtol, atol)
+            err = check_close(f"mla_decode {(B, H, L)} {kw} {layout} {dtype}", out, ref, rtol, atol)
             worst = max(worst, err)
-            print(f"[8a] mla_decode B={B} H={H} L={L} {kw} {dtype} "
-                  f"({kw.get('splits') or auto_splits(B, H, min(L, kw['kv_len']), dev, dtype)} splits): "
+            print(f"[8a] mla_decode B={B} H={H} L={L} {kw} cache {layout} {dtype} "
+                  f"({kw.get('splits') or auto_splits(B, H, min(L, kw['kv_len']), sms, dtype)} splits): "
                   f"max abs err "
                   f"{err:.3e} (rtol {rtol}, atol {atol:.2e}; max |out| {top:.3e})")
             del ql, qp, ckv, kpe, out, ref
+        # a view whose base is not 16-byte aligned is refused before any launch
+        ql, qp = (torch.randn(1, 64, d, generator=gen, device=dev).to(dtype) for d in (512, 64))
+        row = torch.randn(1, 256, 584, generator=gen, device=dev).to(dtype)
+        try:
+            mla_decode(ql, qp, row[..., 1:513], row[..., 520:], scale=scale, kv_len=200)
+        except ValueError as e:
+            print(f"[8a] mla_decode refuses a ckv view 1 element in ({dtype}): {e}")
+        else:
+            raise AssertionError("mla_decode took a ckv base that TMA cannot load")
     rows = []
     for shape_name, B in (("decode_32k", 16), ("long_500k", INPUT_SHAPES["long_500k"].global_batch)):
         L, H = INPUT_SHAPES[shape_name].seq_len, 128
@@ -1088,7 +1127,7 @@ def phase_mla_kernel(dev: torch.device, seed: int) -> dict:
         library, backend = sdpa_mla(ql, qp, ckv, kpe, live, scale)
         b_ms, b_by = mla_bound(B, H, live, 2)
         row = {"shape": f"{shape_name}: B={B} H={H} r=512 rd=64 L={L} kv_len={live} bf16, "
-                        f"{auto_splits(B, H, live, dev)} splits",
+                        f"{auto_splits(B, H, live, sms)} splits",
                "ms": time_ms(lambda: mla_decode(ql, qp, ckv, kpe, scale=scale, kv_len=live)),
                "plain_ms": time_ms(lambda: mla_decode_plain(ql, qp, ckv, kpe, scale=scale,
                                                             kv_len=live), reps=5),
@@ -1097,6 +1136,8 @@ def phase_mla_kernel(dev: torch.device, seed: int) -> dict:
         print(f"[8a] mla_decode {row['shape']}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library ({row['library']}) {row['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
+        kernel_launches(f"[8a] mla_decode {shape_name} launches",
+                        lambda: mla_decode(ql, qp, ckv, kpe, scale=scale, kv_len=live))
         rows.append(row)
         del ql, qp, ckv, kpe, library
         free_card()

@@ -32,8 +32,9 @@ from repro_torch.kernels.flash_decode import (DEFAULT_SPLITS, NEG_INF, combine_p
 
 DIMS = (512, 64)          # (kv_lora_rank, rope dim) the CUDA kernel is instantiated for
 HEADS_PER_BLOCK = {torch.bfloat16: 64, torch.float32: 32}   # query heads one block handles
-ROWS_PER_TILE = 32        # cache rows the kernel stages per step
-WAVES = 2                 # the grid fills the card (one block an SM) at most this many times
+ROWS_PER_TILE = {torch.bfloat16: 64, torch.float32: 32}     # cache rows a block takes per step
+WAVES = {torch.bfloat16: 1, torch.float32: 2}   # blocks of one call fill the card (one an SM)
+                                                # at most this many times
 
 
 def mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
@@ -64,17 +65,26 @@ def mla_decode_plain(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
     return combine_partials_plain(o_part, lse, dim=2).to(q_lat.dtype)
 
 
-def auto_splits(B: int, H: int, live: int, device: torch.device,
+def auto_splits(B: int, H: int, live: int, sms: int,
                 dtype: torch.dtype = torch.bfloat16) -> int:
-    """Partitions of the live rows for one call: as many as fill the card's
-    SMs at most ``WAVES`` times (rounding down, so that no last wave runs a
-    few blocks alone), and no partition shorter than one tile. At
-    deepseek-v2's serve shape (B = 16, two groups of 64 heads in bf16) that
-    is 8 splits of 4096 rows; at long_500k's (B = 1) 132 splits."""
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    """Partitions of the live rows for one call on a card with ``sms`` SMs:
+    as many as fill the SMs at most ``WAVES`` times (rounding down, so that
+    no last wave runs a few blocks alone), and none shorter than one tile
+    unless all the live rows are. Fewer, longer partitions leave fewer f32
+    partials to write and combine. At deepseek-v2's serve shape in bf16
+    (B = 16, two groups of 64 heads, 132 SMs) that is 4 splits of 8192 rows:
+    128 blocks; at long_500k's (B = 1) 66 splits: 132 blocks."""
     groups = -(-H // HEADS_PER_BLOCK[dtype])
-    want = WAVES * sms // max(1, B * groups)
-    return max(1, min(want, -(-live // ROWS_PER_TILE)))
+    want = WAVES[dtype] * sms // max(1, B * groups)
+    return max(1, min(want, live // ROWS_PER_TILE[dtype]))
+
+
+def _tma_strides(t: torch.Tensor) -> tuple:
+    """(batch stride, row stride) of a 3-d input in elements, with any dim of
+    size 1 given the packed stride: TMA reads no stride of a size-1 dim, but
+    takes only strides that are positive multiples of 16 bytes."""
+    row = t.stride(1) if t.shape[1] > 1 else t.shape[2]
+    return (t.stride(0) if t.shape[0] > 1 else t.shape[1] * row), row
 
 
 def _lib() -> ctypes.CDLL:
@@ -118,28 +128,34 @@ def mla_decode(q_lat: torch.Tensor, q_pe: torch.Tensor, ckv: torch.Tensor,
     if (splits is not None and splits < 1) or B > 65535:
         raise ValueError(f"mla_decode: needs splits >= 1 and B <= 65535, got splits={splits}, "
                          f"B={B}")
-    vec = 16 // q_lat.element_size()
-    if any(s % vec for s in (*q_lat.stride()[:2], *q_pe.stride()[:2], *ckv.stride()[:2],
-                             *kpe.stride()[:2])):
-        raise ValueError(f"mla_decode: batch, head and row strides must be multiples of {vec} "
-                         "elements")
-    _build.check_launchable("mla_decode", q_lat, q_pe, ckv, kpe)
-
     out = torch.empty((B, H, r), dtype=dtype, device=q_lat.device)
     if B == 0 or H == 0:
         return out
+    for name, t in (("q_lat", q_lat), ("q_pe", q_pe), ("ckv", ckv), ("kpe", kpe)):
+        if t.data_ptr() % 16:
+            raise ValueError(f"mla_decode: {name} starts {t.data_ptr() % 16} bytes past a 16-byte "
+                             "boundary; the kernel's TMA loads need 16-byte aligned bases (a view "
+                             f"offset by a multiple of {16 // t.element_size()} elements is taken)")
+    _build.check_launchable("mla_decode", q_lat, q_pe, ckv, kpe)
+    vec = 16 // q_lat.element_size()
+    strides = [s for t in (q_lat, q_pe, ckv, kpe) for s in _tma_strides(t)]
+    if any(s <= 0 or s % vec for s in strides):
+        raise ValueError(f"mla_decode: batch, head and row strides must be positive multiples "
+                         f"of {vec} elements (16 bytes), got {strides}")
+
     lo, hi = live_range(L, kv_len, q_pos, 0)
     if splits is None:
-        splits = auto_splits(B, H, hi - lo, q_lat.device, dtype)
+        splits = auto_splits(B, H, hi - lo,
+                             torch.cuda.get_device_properties(q_lat.device).multi_processor_count,
+                             dtype)
     splits = min(splits, 65535)
     per = rows_per_split(lo, hi, splits)
     o_part = torch.empty((B, H, splits, r), dtype=torch.float32, device=q_lat.device)
     lse = torch.empty((B, H, splits), dtype=torch.float32, device=q_lat.device)
     rc = _lib().mla_decode_launch(
         q_lat.data_ptr(), q_pe.data_ptr(), ckv.data_ptr(), kpe.data_ptr(), o_part.data_ptr(),
-        lse.data_ptr(), out.data_ptr(), q_lat.stride(0), q_lat.stride(1), q_pe.stride(0),
-        q_pe.stride(1), ckv.stride(0), ckv.stride(1), kpe.stride(0), kpe.stride(1), B, H, hi,
-        per, splits, r, rd, int(dtype == torch.bfloat16), float(scale),
+        lse.data_ptr(), out.data_ptr(), *strides, B, H, hi, per, splits, r, rd,
+        int(dtype == torch.bfloat16), float(scale),
         _build.stream_ptr(q_lat.device))
     if rc:
         raise RuntimeError(f"mla_decode: kernel launch failed with CUDA error {rc}")

@@ -40,7 +40,7 @@ class PromptTuner:
     def score(self, prompt_params: Dict, eval_batch: Dict) -> float:
         """Eqn 1: mean loss on D_eval, no tuning. Smaller is better."""
         batch = batch_to_torch(eval_batch, self.model.device)
-        loss, _ = lpt_loss(self.model, self._materialize_prompt(prompt_params), batch)
+        _, (loss, _) = lpt_loss(self.model, self._materialize_prompt(prompt_params), batch)
         return float(loss)
 
 

@@ -90,11 +90,11 @@ def test_backbone_and_forward_match_jax(pair, with_prompt):
 def test_lpt_loss_matches_jax(pair):
     jmodel, params, model = pair
     _, prompt, batch = _inputs(1, model.cfg.d_model)
-    _, (jmean, jper) = jax_lpt_loss(jmodel, params, jnp.asarray(prompt),
-                                    {k: jnp.asarray(v) for k, v in batch.items()}, 4)
+    jtotal, (jmean, jper) = jax_lpt_loss(jmodel, params, jnp.asarray(prompt),
+                                         {k: jnp.asarray(v) for k, v in batch.items()}, 4)
     with torch.no_grad():
-        mean, per = lpt_loss(model, torch.from_numpy(prompt),
-                             {k: torch.from_numpy(v) for k, v in batch.items()})
+        total, (mean, per) = lpt_loss(model, torch.from_numpy(prompt),
+                                      {k: torch.from_numpy(v) for k, v in batch.items()})
         # the fused path agrees with the full-logits CE of the port's forward
         logits = model(torch.from_numpy(batch["tokens"]), torch.from_numpy(prompt))
         fmean, _ = token_cross_entropy(logits[:, -12:], torch.from_numpy(batch["labels"]),
@@ -102,6 +102,7 @@ def test_lpt_loss_matches_jax(pair):
     np.testing.assert_allclose(float(mean), float(jmean), rtol=TOL)
     np.testing.assert_allclose(per.numpy(), np.asarray(jper), rtol=TOL, atol=TOL)
     np.testing.assert_allclose(float(fmean), float(mean), rtol=TOL)
+    assert float(total) == float(mean) and float(jtotal) == float(jmean)   # no auxiliary loss
 
 
 @pytest.mark.parametrize("op", ["rms_norm", "layer_norm", "apply_rope", "apply_ffn_gelu",

@@ -6,8 +6,9 @@ JAX package's.
   with a capacity factor that forces drops: the dropped (token, k) pairs
   must be the same ones;
 - the whole ``smoke_config("deepseek-v2-236b")`` model (1 dense + 2 MoE
-  layers, MLA): ``backbone`` with its aux loss, ``forward``, and decode
-  steps through ``make_serve_step`` against the reference's ``Model``;
+  layers, MLA): ``backbone`` with its aux loss, ``forward``, ``lpt_loss``
+  (its total carries the aux loss) and decode steps through
+  ``make_serve_step`` against the reference's ``Model``;
 - ``params_from_jax`` on the reference's ``dense0``/``moe`` tree, and the
   seeded init of expert stacks and the router.
 
@@ -25,10 +26,12 @@ from repro.configs import smoke_config as jax_smoke_config
 from repro.launch.steps import make_serve_step as jax_make_serve_step
 from repro.models import build_model
 from repro.models import moe as jmoe
+from repro.train.objectives import lpt_loss as jax_lpt_loss
 from repro_torch.configs import smoke_config
 from repro_torch.launch import make_serve_step
 from repro_torch.models import Model, params_from_jax
 from repro_torch.models import moe
+from repro_torch.train import lpt_loss
 from test_torch_mla import moe_numpy_params
 
 TOL = 1e-5
@@ -140,6 +143,43 @@ def test_backbone_aux_and_forward_match_jax(pair, with_prompt):
     _close(logits, jlogits)
     with torch.no_grad():                       # existing callers get the hidden state alone
         _close(model.backbone(torch.from_numpy(tokens), tp), jhidden)
+
+
+def test_lpt_loss_adds_the_aux_loss_as_jax(pair, monkeypatch):
+    """At a capacity factor that drops (token, expert) pairs, lpt_loss
+    returns the reference's (mean + aux loss, (mean, per-example)), and its
+    total exceeds the mean by the backbone's router loss."""
+    _, params, loaded = pair
+    jcfg, cfg = _configs(0.5)
+    jmodel, model = build_model(jcfg), Model(cfg, device="cpu", seed=None)
+    model.load_state_dict(loaded.state_dict())
+    B, S, P = 2, 12, 4
+    rng = np.random.default_rng(21)
+    tokens = rng.integers(3, 512, (B, S)).astype(np.int32)
+    prompt = (rng.normal(size=(P, cfg.d_model)) * 0.1).astype(np.float32)
+    batch = {"tokens": tokens, "labels": rng.integers(3, 512, (B, S)).astype(np.int32),
+             "mask": (rng.random((B, S)) > 0.3).astype(np.float32)}
+    jtotal, (jmean, jper) = jax_lpt_loss(jmodel, params, jnp.asarray(prompt),
+                                         {k: jnp.asarray(v) for k, v in batch.items()}, P)
+    routes, real_route = [], moe.route
+    def recording(m, router_w, x_flat):
+        out = real_route(m, router_w, x_flat)
+        routes.append(out[1])
+        return out
+    monkeypatch.setattr(moe, "route", recording)
+    with torch.no_grad():
+        total, (mean, per) = lpt_loss(model, torch.from_numpy(prompt),
+                                      {k: torch.from_numpy(v) for k, v in batch.items()})
+        _, aux = model.backbone(torch.from_numpy(tokens), torch.from_numpy(prompt),
+                                return_aux=True)
+    assert len(routes) == 4                     # two MoE layers, two backbone runs
+    cap = moe.capacity(cfg.moe, B * (S + P))
+    assert any(not moe.assign_slots(ids, cfg.moe.num_experts, cap)[1].all() for ids in routes)
+    _close(total, jtotal)
+    _close(mean, jmean)
+    _close(per, jper)
+    assert float(aux["aux_loss"]) > 1e-3
+    _close(total - mean, aux["aux_loss"])
 
 
 def test_decode_steps_match_jax(pair):

@@ -383,13 +383,14 @@ def test_backbone_and_forward_match_jax(pair, with_prompt):
 def test_lpt_loss_matches_jax(pair):
     jmodel, params, _, model = pair
     _, prompt, batch = _inputs(1, model.cfg.d_model)
-    _, (jmean, jper) = jax_lpt_loss(jmodel, params, jnp.asarray(prompt),
-                                    {k: jnp.asarray(v) for k, v in batch.items()}, 4)
+    jtotal, (jmean, jper) = jax_lpt_loss(jmodel, params, jnp.asarray(prompt),
+                                         {k: jnp.asarray(v) for k, v in batch.items()}, 4)
     with torch.no_grad():
-        mean, per = lpt_loss(model, torch.from_numpy(prompt),
-                             {k: torch.from_numpy(v) for k, v in batch.items()})
+        total, (mean, per) = lpt_loss(model, torch.from_numpy(prompt),
+                                      {k: torch.from_numpy(v) for k, v in batch.items()})
     np.testing.assert_allclose(float(mean), float(jmean), rtol=TOL)
     _close(per, jper)
+    assert float(total) == float(mean) and float(jtotal) == float(jmean)   # no auxiliary loss
 
 
 @pytest.mark.parametrize("arch", ["qwen2-7b", ARCH])
@@ -408,8 +409,9 @@ def test_untied_output_embedding_is_kept_not_copied_per_call(arch):
         logits = model(batch["tokens"], torch.from_numpy(prompt))
         ref, _ = token_cross_entropy(logits[:, -12:], batch["labels"], batch["mask"])
     assert model.output_embedding().data_ptr() == emb.data_ptr()
-    assert float(first[0]) == float(second[0])
-    np.testing.assert_allclose(float(first[0]), float(ref), rtol=TOL)
+    (_, (first_mean, _)), (_, (second_mean, _)) = first, second
+    assert float(first_mean) == float(second_mean)
+    np.testing.assert_allclose(float(first_mean), float(ref), rtol=TOL)
     state = model.state_dict()
     state["unembed"] = state["unembed"] * 2
     model.load_state_dict(state)
