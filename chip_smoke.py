@@ -72,6 +72,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    positions' shapes (T = 272 and 7952); (d) a
    2-layer f32 cut of the same weights, card against CPU, on 4 decode
    steps.
+9. Tuning (run after phase 7 and before phase 8's model is drawn):
+   (a) the backward kernels of score_ce and flash_attention against their
+   plain versions in bf16 and f32 (flash_attention: GQA 28/4 at hd 128 and
+   MHA at hd 64, causal, windowed, q_offset > 0, kv_len < L, S not a tile
+   multiple, rows with nothing live, vicuna-7b's 4112 positions; score_ce:
+   gpt2-base's and vicuna-7b's (D, V), T not a tile multiple, masked tokens,
+   two and four vocabulary chunks), the forwards' log-sum-exp against the
+   plain one and their output unchanged by writing it, and both backward
+   kernels' times beside their plain versions, the library's backward and
+   their bounds; (b) ten Adam steps of a 2-layer f32 cut of gpt2-base, card
+   against CPU from one state; (c) gpt2-base at full width (bf16, weights
+   from --seed): PromptTuner.tune for 40 iterations at TuneConfig's
+   defaults, then from the tuned prompt with a target above the first
+   evaluation, which must end at 0 iterations, and one step profiled;
+   (d) vicuna-7b at full width: 3 make_train_step steps at train_4k (4096
+   tokens + 16 prompt positions) with the global batch cut from 256 to 2 (2
+   microbatches), its peak memory and one step profiled, and the first
+   microbatch's prompt gradient in bf16 against f32 on a 4-layer cut. On
+   (c) and (d) every tuning kernel's launch count must be > 0 and no plain
+   version may run.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -151,6 +171,28 @@ F32_LOGIT_TOL = 1e-4
 LAYER_DECODE_BF16_TOL = 0.05
 MIN_CLEAN_TOKENS = 0.1
 MAX_FLIP_SHARE = 0.5
+# The backward kernels against their plain versions (phase 9a). bf16: the
+# kernels round P and dS (flash_attention) or G = g·(softmax - onehot)
+# (score_ce) to bf16 before their products, as the reference's XLA backward
+# rounds to the operands' type, and the plain versions stay in f32; a
+# gradient element that sums to near 0 keeps an absolute error set by its
+# row's scale, so atol is scaled to the largest gradient element. f32: the
+# same arithmetic in another order (sums of up to 7 heads x 4112 rows, or
+# 32000 vocabulary columns).
+BWD_RTOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+BWD_ATOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}   # times max |plain gradient|
+# Ten Adam steps of the 2-layer f32 cut of gpt2-base, card against CPU (phase
+# 9b): the losses at the f32 scoring tolerance, the prompt after each step
+# by relative norm at the port's CPU parity tolerance for gradients (sums
+# of up to 50257 terms in another order; Adam scales each element by its
+# own running gradient size, which carries that rounding into the update).
+TUNE_F32_LOSS_RTOL = 1e-5
+TUNE_F32_PROMPT_TOL = 1e-4
+# vicuna-7b's first train_4k step (phase 9d): the prompt gradient in bf16
+# against the same step in f32 on a depth cut, by relative norm. bf16 rounds
+# every activation and every saved tensor of 4112 positions to 8 bits, a
+# few dozen roundings a layer that add up like a random walk.
+GRAD_BF16_REL_TOL = 0.05
 
 
 def gpu_line() -> str:
@@ -496,6 +538,8 @@ def phase_times(model, seed: int) -> dict:
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         row = {"shape": f"B={B} H={H} S=L={S} hd={hd} causal bf16",
                "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+               "lse_ms": time_ms(lambda: flash_attention(q, k, v, causal=True,
+                                                         return_lse=True)),
                "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=True)),
                "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
                    q, k, v, is_causal=True)),
@@ -505,7 +549,8 @@ def phase_times(model, seed: int) -> dict:
     library_yardstick(f"[5] flash_attention {rows['flash_attention'][-1]['shape']}",
                       lambda: flash_attention(q, k, v, causal=True), sdpa)
     for r in rows["flash_attention"]:
-        print(f"[5] flash_attention {r['shape']}: kernel {r['ms']:.4f} ms, plain "
+        print(f"[5] flash_attention {r['shape']}: kernel {r['ms']:.4f} ms (writing the "
+              f"lse too {r['lse_ms']:.4f} ms), plain "
               f"{r['plain_ms']:.4f} ms, library {r['library_ms']:.4f} ms, bound "
               f"{r['bound_ms']:.4f} ms ({r['bound_by']})")
     return rows
@@ -530,6 +575,7 @@ def score_ce_rows(label: str, model_name: str, emb: torch.Tensor, Ts, gen,
         b_ms, b_by = bound(flops, nbytes, PEAK_BF16_FLOPS)
         row = {"shape": f"{model_name}: T={T} D={D} V={V} bf16",
                "ms": time_ms(lambda: score_ce(h, emb, lab)),
+               "lse_ms": time_ms(lambda: score_ce(h, emb, lab, return_lse=True)),
                "plain_ms": time_ms(lambda: score_ce_plain(h, emb, lab), reps=5),
                "library_ms": time_ms(lambda: F.cross_entropy(
                    (h @ emb.T).float(), lab.long(), reduction="none"), reps=5),
@@ -538,7 +584,8 @@ def score_ce_rows(label: str, model_name: str, emb: torch.Tensor, Ts, gen,
         if gemm:
             row["gemm_ms"] = time_ms(lambda: h @ emb.T)
             extra = f", bare h @ E.T (cuBLAS) {row['gemm_ms']:.4f} ms"
-        print(f"{label} score_ce {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+        print(f"{label} score_ce {row['shape']}: kernel {row['ms']:.4f} ms (writing the lse "
+              f"too {row['lse_ms']:.4f} ms), plain "
               f"{row['plain_ms']:.4f} ms, library {row['library_ms']:.4f} ms{extra}, bound "
               f"{b_ms:.4f} ms ({b_by})")
         kernel_launches(f"{label} score_ce T={T} D={D} V={V}", lambda: score_ce(h, emb, lab))
@@ -1391,8 +1438,451 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
     return out
 
 
+# -- phase 9 --------------------------------------------------------------------
+
+# flash_attention's backward checks: B, H, Hkv, S, L, hd, kwargs (causal
+# unless they say otherwise). GQA 28/4 at hd 128 and MHA at hd 64; a window
+# with kv_len < L; q_offset > 0; S not a multiple of the 64-row tile; rows
+# with no live column (window 4, kv_len 10: rows 13-19 see nothing); the
+# training shape of vicuna-7b (4112 positions, hd 128, MHA).
+FA_BWD_CASES = [
+    (2, 28, 4, 513, 513, 128, {}),
+    (2, 12, 12, 513, 513, 64, {}),
+    (2, 28, 4, 513, 513, 128, {"window": 128, "kv_len": 400}),
+    (2, 28, 4, 64, 513, 128, {"q_offset": 449}),
+    (2, 12, 12, 65, 65, 64, {}),
+    (2, 12, 4, 65, 200, 64, {"q_offset": 135, "window": 70}),
+    (2, 12, 4, 20, 20, 64, {"window": 4, "kv_len": 10}),
+    (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
+    (8, 12, 12, 33, 33, 64, {}),                                 # gpt2-base tuning, batch 8
+    (1, 32, 32, 4112, 4112, 128, {}),                            # vicuna-7b train_4k
+]
+# score_ce's backward checks: T, D, V. gpt2-base's tuning batch (8 rows of
+# 17 tokens) and T one past a 128-row tile; vicuna-7b's at a 512-position
+# chunk of one sequence, and at 8192 rows, which the wrapper splits into two
+# vocabulary chunks in bf16 (four in f32), the last one ragged.
+SCE_BWD_CASES = [(136, 768, 50257), (273, 768, 50257), (1, 768, 50257),
+                 (512, 4096, 32000), (8192, 4096, 32000)]
+
+
+def check_bwd(name: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
+    return check_close(name, out, ref, BWD_RTOL[dtype],
+                       BWD_ATOL[dtype] * ref.float().abs().max().item())
+
+
+def fa_bwd_bound(B: int, H: int, Hkv: int, S: int, L: int, hd: int, pairs: int, elt: int):
+    """Least time of one flash_attention_bwd call: q, o, dO and dq (B·H·S·hd),
+    k, v, dk and dv (B·Hkv·L·hd) moved once, the f32 lse; 10·hd operations a
+    live (query, key) pair and head (the scores again, dP, dV, dK, dQ)."""
+    nbytes = (4 * B * H * S + 4 * B * Hkv * L) * hd * elt + B * H * S * 4
+    return bound(10.0 * B * H * pairs * hd, nbytes, PEAK_BF16_FLOPS)
+
+
+def sce_bwd_bound(T: int, D: int, V: int, elt: int):
+    """Least time of one score_ce_bwd call: hidden and emb read once, the
+    labels, lse and gradient (4 bytes a token each), dh written; the logits
+    again and G·E, 4·T·V·D operations."""
+    nbytes = (2 * T * D + V * D) * elt + 3 * T * 4
+    return bound(4.0 * T * V * D, nbytes, PEAK_BF16_FLOPS)
+
+
+def causal_pairs(S: int, L: int, q_offset: int = 0) -> int:
+    return sum(min(L, q_offset + i + 1) for i in range(S))
+
+
+def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
+    """9a: the two backward kernels against their plain versions in bf16 and
+    f32, flash_attention's forward with and without its log-sum-exp output,
+    and both backward kernels' times at the tuning path's shapes."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.score_ce import (score_ce, score_ce_bwd, score_ce_bwd_plain,
+                                              score_ce_plain)
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 9)
+    worst = {"flash_attention_bwd": 0.0, "score_ce_bwd": 0.0}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, Hkv, S, L, hd, kw in FA_BWD_CASES:
+            kw = {"causal": True, **kw}
+            q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype)
+            k, v = (torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(dtype)
+                    for _ in range(2))
+            dout = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype)
+            out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+            same = flash_attention(q, k, v, **kw)
+            torch.cuda.synchronize()
+            if not torch.equal(out, same):
+                raise AssertionError(f"flash_attention {kw}: the output moved when the "
+                                     "log-sum-exp was written")
+            pout, plse = flash_attention_plain(q, k, v, return_lse=True, **kw)
+            live = plse > -1e29                         # rows with some live column
+            lse_err = check_close(f"flash_attention lse {(B, H, Hkv, S, L, hd)} {kw} {dtype}",
+                                  lse[live], plse[live], TOL[dtype])
+            if not (lse[~live] < -1e29).all():
+                raise AssertionError("flash_attention: a row with nothing live has a finite lse")
+            grads = flash_attention_bwd(q, k, v, pout, dout, plse, **kw)
+            torch.cuda.synchronize()
+            refs = flash_attention_bwd_plain(q, k, v, pout, dout, plse, **kw)
+            name = f"flash_attention_bwd {(B, H, Hkv, S, L, hd)} {kw} {dtype}"
+            errs = [check_bwd(f"{name} {g}", a, b, dtype)
+                    for g, a, b in zip(("dq", "dk", "dv"), grads, refs)]
+            if not (grads[0].float().abs().sum(-1)[~live] == 0).all():
+                raise AssertionError(f"{name}: a row with nothing live got a gradient")
+            worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], *errs)
+            print(f"[9a] flash_attention_bwd B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} {kw} "
+                  f"{dtype}: max abs err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
+                  f"(rtol {BWD_RTOL[dtype]}, atol {BWD_ATOL[dtype]} x max |plain|); lse "
+                  f"{lse_err:.3e}; {int((~live).sum())} rows with nothing live")
+            del q, k, v, dout, out, same, pout, grads, refs
+        for T, D, V in SCE_BWD_CASES:
+            h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
+            e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(dtype)
+            lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
+            lab[:3] = torch.tensor([0, V - 1, V - 5], device=dev, dtype=torch.int32)[:T]
+            g = torch.rand(T, generator=gen, device=dev) / T
+            g[1::3] = 0.0                                  # masked tokens
+            nll, lse = score_ce(h, e, lab, return_lse=True)
+            torch.cuda.synchronize()
+            if not torch.equal(nll, score_ce(h, e, lab)):
+                raise AssertionError("score_ce: the output moved when the lse was written")
+            _, plse = score_ce_plain(h, e, lab, return_lse=True)
+            lse_err = check_close(f"score_ce lse T={T} {dtype}", lse, plse, TOL[dtype])
+            dh = score_ce_bwd(h, e, lab, plse, g)
+            torch.cuda.synchronize()
+            ref = score_ce_bwd_plain(h, e, lab, plse, g)
+            name = f"score_ce_bwd T={T} D={D} V={V} {dtype}"
+            err = check_bwd(name, dh, ref, dtype)
+            if (dh[1::3] != 0).any():
+                raise AssertionError(f"{name}: a masked token got a gradient")
+            worst["score_ce_bwd"] = max(worst["score_ce_bwd"], err)
+            print(f"[9a] {name}: max abs err {err:.3e} (rtol {BWD_RTOL[dtype]}, atol "
+                  f"{BWD_ATOL[dtype]} x max |plain|); lse {lse_err:.3e}")
+            del h, e, dh, ref
+        free_card()
+    return {"worst": worst, **backward_times(dev, gen)}
+
+
+def backward_times(dev: torch.device, gen) -> dict:
+    """The backward kernels' times at the tuning path's shapes (bf16), beside
+    their plain versions, a PyTorch library call's backward (built once,
+    ``retain_graph``, so the time is the backward's alone) and their bounds;
+    and the forward kernels' times at the same shapes."""
+    from repro_torch.kernels.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_plain,
+                                                     flash_attention_plain)
+    from repro_torch.kernels.score_ce import score_ce, score_ce_bwd, score_ce_bwd_plain
+
+    bf = torch.bfloat16
+    rows = {"flash_attention_bwd": [], "score_ce_bwd": [], "flash_attention": [],
+            "score_ce": []}
+    for label, (B, H, S, hd) in (("gpt2-base tuning", (8, 12, 33, 64)),
+                                 ("vicuna-7b train_4k", (1, 32, 4112, 128))):
+        q, k, v, dout = (torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf)
+                         for _ in range(4))
+        out, lse = flash_attention(q, k, v, return_lse=True)
+        pairs = causal_pairs(S, S)
+        f_ms, f_by = bound(4.0 * B * H * pairs * hd, 4 * B * H * S * hd * 2, PEAK_BF16_FLOPS)
+        fwd = {"shape": f"{label}: B={B} H={H} S=L={S} hd={hd} causal bf16",
+               "ms": time_ms(lambda: flash_attention(q, k, v)),
+               "lse_ms": time_ms(lambda: flash_attention(q, k, v, return_lse=True)),
+               "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v), reps=5),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q, k, v, is_causal=True)), "bound_ms": f_ms, "bound_by": f_by}
+        rows["flash_attention"].append(fwd)
+        print(f"[9a] flash_attention (forward) {fwd['shape']}: kernel {fwd['ms']:.4f} ms "
+              f"(writing the lse too {fwd['lse_ms']:.4f} ms), plain {fwd['plain_ms']:.4f} ms, "
+              f"library {fwd['library_ms']:.4f} ms, bound {f_ms:.4f} ms ({f_by})")
+        b_ms, b_by = fa_bwd_bound(B, H, H, S, S, hd, pairs, 2)
+        qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+        sdpa_out = F.scaled_dot_product_attention(qg, kg, vg, is_causal=True)
+        lib = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)
+        row = {"shape": f"{label}: B={B} H={H} S=L={S} hd={hd} causal bf16",
+               "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse)),
+               "plain_ms": time_ms(lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse),
+                                   reps=5),
+               "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+        rows["flash_attention_bwd"].append(row)
+        print(f"[9a] flash_attention_bwd {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (SDPA backward) {row['library_ms']:.4f} ms, "
+              f"bound {b_ms:.4f} ms ({b_by})")
+        kernel_launches(f"[9a] flash_attention_bwd {label}, port",
+                        lambda: flash_attention_bwd(q, k, v, out, dout, lse))
+        kernel_launches(f"[9a] flash_attention_bwd {label}, SDPA backward", lib)
+        del q, k, v, dout, out, qg, kg, vg, sdpa_out
+    for label, model, (T, D, V) in (
+            ("gpt2-base tuning", "gpt2-base", (136, 768, 50257)),
+            ("vicuna-7b train_4k, one 512-position chunk of a one-sequence microbatch",
+             "vicuna-7b", (512, 4096, 32000))):
+        h = torch.randn(T, D, generator=gen, device=dev).to(bf)
+        e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(bf)
+        rows["score_ce"] += score_ce_rows("[9a]", model, e, (T,), gen)
+        lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
+        g = torch.full((T,), 1.0 / T, device=dev)
+        _, lse = score_ce(h, e, lab, return_lse=True)
+        b_ms, b_by = sce_bwd_bound(T, D, V, 2)
+        hg = h.detach().requires_grad_(True)
+        nll = F.cross_entropy((hg @ e.T).float(), lab.long(), reduction="none")
+        lib = lambda: torch.autograd.grad(nll, hg, g, retain_graph=True)
+        row = {"shape": f"{label}: T={T} D={D} V={V} bf16",
+               "ms": time_ms(lambda: score_ce_bwd(h, e, lab, lse, g)),
+               "plain_ms": time_ms(lambda: score_ce_bwd_plain(h, e, lab, lse, g), reps=5),
+               "library_ms": time_ms(lib, reps=5), "bound_ms": b_ms, "bound_by": b_by}
+        rows["score_ce_bwd"].append(row)
+        print(f"[9a] score_ce_bwd {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (cross_entropy backward) "
+              f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+        kernel_launches(f"[9a] score_ce_bwd {label}", lambda: score_ce_bwd(h, e, lab, lse, g))
+        del h, e, hg, nll
+    free_card()
+    return {"rows": rows}
+
+
+@contextlib.contextmanager
+def plain_calls(calls: dict):
+    """Counts the calls of the plain versions of score_ce, flash_attention and
+    their backwards inside the block, into ``calls``: on the card's main path
+    every one must stay 0."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import score_ce as sc_mod
+
+    names = [(sc_mod, "score_ce_plain"), (sc_mod, "score_ce_bwd_plain"),
+             (fa_mod, "flash_attention_plain"), (fa_mod, "flash_attention_bwd_plain")]
+    saved = {name: getattr(mod, name) for mod, name in names}
+
+    def counting(name):
+        def fn(*a, **k):
+            calls[name] = calls.get(name, 0) + 1
+            return saved[name](*a, **k)
+        return fn
+
+    for mod, name in names:
+        calls.setdefault(name, 0)
+        setattr(mod, name, counting(name))
+    try:
+        yield
+    finally:
+        for mod, name in names:
+            setattr(mod, name, saved[name])
+
+
+def tuning_kernels() -> dict:
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.score_ce import score_ce, score_ce_bwd
+
+    return {"score_ce": score_ce, "score_ce_bwd": score_ce_bwd,
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
+
+
+def main_path(label: str, fn):
+    """Runs ``fn`` as a main path: every tuning kernel's count set to 0 just
+    before, read just after; each must be > 0 and no plain version called.
+    Returns (fn's result, {kernel: launches})."""
+    kernels, calls = tuning_kernels(), {}
+    for k in kernels.values():
+        k.launches = 0
+    with plain_calls(calls):
+        out = fn()
+    torch.cuda.synchronize()
+    launches = {name: k.launches for name, k in kernels.items()}
+    print(f"{label}: kernel launches {launches}; plain-version calls {calls}")
+    if any(n <= 0 for n in launches.values()) or any(calls.values()):
+        raise AssertionError(f"{label}: a tuning kernel was never launched, or a plain "
+                             f"version ran on the card: {launches} {calls}")
+    return out, launches
+
+
+def step_profile(label: str, fn, positions: int, warm: int = 2, reps: int = 5,
+                 traced: int = 2) -> None:
+    """Prints per step: latency (host wall, synchronised), tokens/s over the
+    step's positions, device busy, idle share and kernels (profile_calls)."""
+    wall_ms = profile_calls(label, fn, warm=warm, reps=reps, traced=traced)["wall_ms"]
+    print(f"{label}: latency {wall_ms:.3f} ms a step, {positions / (wall_ms / 1e3):.0f} "
+          f"positions/s ({positions} positions a step)")
+
+
+def synthetic_task(input_len: int = 8, target_len: int = 8):
+    from repro_torch.data import make_tasks
+    return make_tasks(vocab=32, partitions=4, input_len=input_len, target_len=target_len)[5]
+
+
+def phase_tune_gpt2(dev: torch.device, seed: int) -> dict:
+    """9b and 9c on gpt2-base: the 2-layer f32 cut's ten Adam steps, card
+    against CPU; then PromptTuner.tune at full width."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.configs import get_config
+    from repro_torch.data import LoaderConfig, TaskLoader
+    from repro_torch.models import Model, prompt_from_arrays
+    from repro_torch.tuning import PromptTuner
+
+    cfg = get_config("gpt2-base")                      # full width, bf16
+    model = Model(cfg, device=dev, seed=seed)
+    tune_cfg = TuneConfig()                            # P=16, batch 8, lr 0.3, eval 10, 16 samples
+    task = synthetic_task()
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    prompt0 = rng.normal(0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d)).astype(np.float32)
+
+    # 9b: ten Adam steps of the 2-layer f32 cut, card against CPU, from one state
+    card, cpu = depth_cut(cut_state(model, 2), dev)
+    loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+    steps = [next(loader) for _ in range(10)]
+    tuned = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        t = PromptTuner(m, tune_cfg)
+        pp = prompt_from_arrays({"soft_prompt": prompt0}, m.device)
+        st = t.init_opt(pp)
+        traj = []
+        for b in steps:
+            pp, st, loss = t.step(pp, st, b)
+            traj.append((float(loss), pp["soft_prompt"].detach().cpu().clone()))
+        tuned[name] = traj
+    worst_loss = worst_prompt = 0.0
+    for i, ((lc, pc), (lr_, pr)) in enumerate(zip(tuned["card"], tuned["cpu"])):
+        rel_l, rel_p = abs(lc - lr_) / abs(lr_), rel_gap(pc, pr)
+        worst_loss, worst_prompt = max(worst_loss, rel_l), max(worst_prompt, rel_p)
+        print(f"[9b] step {i + 1}: loss card {lc:.6f} cpu {lr_:.6f} (rel {rel_l:.2e}); "
+              f"prompt ||card - cpu|| / ||cpu|| {rel_p:.2e}")
+    if not (worst_loss <= TUNE_F32_LOSS_RTOL and worst_prompt <= TUNE_F32_PROMPT_TOL):
+        raise AssertionError(f"[9b] the 2-layer f32 cut's tuning on the card left the CPU's: "
+                             f"loss {worst_loss:.2e} (tol {TUNE_F32_LOSS_RTOL}), prompt "
+                             f"{worst_prompt:.2e} (tol {TUNE_F32_PROMPT_TOL})")
+    print(f"[9b] 2-layer f32 cut of {cfg.name}, 10 Adam steps (lr {tune_cfg.lr}, batch "
+          f"{tune_cfg.batch_size}, P={tune_cfg.prompt_len}), card against CPU: worst loss rel "
+          f"{worst_loss:.2e} (tol {TUNE_F32_LOSS_RTOL}), worst prompt rel {worst_prompt:.2e} "
+          f"(tol {TUNE_F32_PROMPT_TOL})")
+    del card, cpu
+    free_card()
+
+    # 9c: PromptTuner.tune at full width, 40 iterations, then the ITA = 0 exit
+    tuner = PromptTuner(model, tune_cfg)
+    print(f"[9c] {cfg.name}: {cfg.num_layers} layers, d={d}, V={cfg.vocab_size}, {cfg.dtype}, "
+          f"weights from seed {seed}; task {task.task_id}; TuneConfig defaults: P="
+          f"{tune_cfg.prompt_len}, batch {tune_cfg.batch_size}, lr {tune_cfg.lr}, eval every "
+          f"{tune_cfg.eval_every}, {tune_cfg.eval_samples} eval samples")
+    loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+    t0 = time.perf_counter()
+    res, launches = main_path("[9c] tune, 40 iterations", lambda: tuner.tune(
+        loader, prompt_from_arrays({"soft_prompt": prompt0}, dev), max_iters=40))
+    wall = time.perf_counter() - t0
+    evals = [(it, round(l, 6), round(e, 6)) for it, l, e in res["history"]]
+    print(f"[9c] 40 iterations in {wall:.3f} s ({wall / 40 * 1e3:.3f} ms an iteration with "
+          f"its share of 4 evaluations); history (iteration, train loss, eval loss) {evals}")
+    if res["iters"] != 40 or not all(np.isfinite([l for _, l, _ in evals] +
+                                                  [e for _, _, e in evals])):
+        raise AssertionError(f"[9c] tune did not run 40 finite iterations: {res}")
+    first_eval = res["history"][0][2]
+    target = first_eval + 1e-3 * abs(first_eval)
+    again = tuner.tune(TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size)),
+                       res["prompt"], target_loss=target, max_iters=40)
+    print(f"[9c] again from the tuned prompt with target_loss {target:.6f} (above the first "
+          f"evaluation, {first_eval:.6f}): iters {again['iters']}, reached {again['reached']}, "
+          f"its eval {again['history'][0][2]:.6f}")
+    if again["iters"] != 0 or not again["reached"]:
+        raise AssertionError("[9c] a prompt that meets the target did not end tuning at "
+                             "0 iterations (ITA = 0)")
+
+    # one step, profiled
+    pp = prompt_from_arrays({"soft_prompt": prompt0}, dev)
+    state = {"pp": pp, "opt": tuner.init_opt(pp)}
+    batch = next(loader)
+    positions = batch["tokens"].size + tune_cfg.batch_size * tune_cfg.prompt_len
+
+    def one_step():
+        state["pp"], state["opt"], _ = tuner.step(state["pp"], state["opt"], batch)
+
+    main_path("[9c] one step", one_step)
+    step_profile("[9c] one PromptTuner.step, batch 8 x 33 positions", one_step, positions)
+    del model, tuner
+    free_card()
+    return {"launches": launches}
+
+
+def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
+    """9d: make_train_step on vicuna-7b at full width at the train_4k length,
+    the global batch cut to what fits, with microbatches; the first step's
+    prompt gradient against f32 on a depth cut."""
+    from repro_torch.config import INPUT_SHAPES, TuneConfig
+    from repro_torch.configs import get_config
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import Model, prompt_from_arrays
+    from repro_torch.train import lpt_loss_chunked
+
+    shape = INPUT_SHAPES["train_4k"]
+    cfg = get_config("vicuna-7b")                      # full width, bf16
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    weights_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    print(f"[9d] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, H={cfg.num_heads}, "
+          f"Hkv={cfg.kv_heads()}, hd={cfg.resolved_head_dim()}, d_ff={cfg.d_ff}, V={cfg.vocab_size}, untied, "
+          f"{cfg.dtype}: {weights_gb:.2f} GB of weights drawn on the card from seed {seed} in "
+          f"{time.perf_counter() - t0:.1f} s")
+    tune_cfg = TuneConfig()
+    P, S = tune_cfg.prompt_len, shape.seq_len
+    micro, microbatches = 1, 2                         # global batch 256 cut to 2
+    B = micro * microbatches
+    rng = np.random.default_rng(seed)
+    batches = [{"tokens": rng.integers(3, cfg.vocab_size, (B, S)).astype(np.int32),
+                "labels": rng.integers(0, cfg.vocab_size, (B, S)).astype(np.int32),
+                "mask": np.ones((B, S), np.float32)} for _ in range(3)]
+    prompt0 = rng.normal(0, 0.5 / np.sqrt(cfg.d_model), (P, cfg.d_model)).astype(np.float32)
+    print(f"[9d] {shape.name}: {S} tokens + P={P} = {S + P} positions a sequence "
+          f"({'past' if S + P > cfg.max_seq_len else 'within'} max_seq_len {cfg.max_seq_len}; "
+          f"neither package checks it); global batch "
+          f"{shape.global_batch} cut to {B} = {microbatches} microbatches of {micro}")
+    step, opt = make_train_step(model, tune_cfg, microbatches=microbatches)
+    pp = prompt_from_arrays({"soft_prompt": prompt0}, dev)
+    state = opt.init(pp)
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run():
+        cur, st, out = pp, state, []
+        for b in batches:
+            t = time.perf_counter()
+            cur, st, loss = step(cur, st, b)
+            out.append((float(loss), (time.perf_counter() - t) * 1e3))
+        return cur, st, out
+
+    (pp, state, losses), launches = main_path(f"[9d] {len(batches)} train steps, batch {B}", run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[9d] {len(batches)} steps (loss, ms): {[(round(l, 6), round(t, 1)) for l, t in losses]}; "
+          f"max_memory_allocated {peak:.2f} GiB of "
+          f"{torch.cuda.get_device_properties(dev).total_memory / 2 ** 30:.1f}")
+    if not np.isfinite([l for l, _ in losses]).all() or not torch.isfinite(pp["soft_prompt"]).all():
+        raise AssertionError("[9d] the train step gave a non-finite loss or prompt")
+    holder = {"pp": pp, "opt": state}
+
+    def one_step():
+        holder["pp"], holder["opt"], _ = step(holder["pp"], holder["opt"], batches[0])
+
+    step_profile(f"[9d] one make_train_step step, batch {B} x {S + P} positions",
+                 one_step, B * (S + P), warm=1, reps=2, traced=1)
+
+    # the first microbatch's prompt gradient, bf16 against f32, on a depth cut
+    layers = min(4, cfg.num_layers)
+    mb = {k: torch.as_tensor(v[:micro], device=dev) for k, v in batches[0].items()}
+    grads = {}
+    cut, cut_sd = cut_state(model, layers)
+    for dtype in ("bfloat16", "float32"):
+        m = Model(cut.with_overrides(dtype=dtype, param_dtype=dtype), device=dev, seed=None)
+        m.load_state_dict(cut_sd)
+        p = prompt_from_arrays({"soft_prompt": prompt0}, dev)["soft_prompt"]
+        tot, _ = lpt_loss_chunked(m, p, mb)
+        (grads[dtype],) = torch.autograd.grad(tot, p)
+        del m, tot
+    grad_rel = rel_gap(grads["bfloat16"], grads["float32"])
+    print(f"[9d] first microbatch's prompt gradient on a {layers}-layer cut at {S + P} "
+          f"positions: ||bf16 - f32|| / ||f32|| = {grad_rel:.3e} (tol {GRAD_BF16_REL_TOL})")
+    if not grad_rel <= GRAD_BF16_REL_TOL:
+        raise AssertionError("[9d] the bf16 prompt gradient disagrees with f32")
+    del model, cut_sd, grads
+    free_card()
+    return {"launches": launches, "batch": B}
+
+
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
-                 mla: dict, mla_serve: dict) -> list:
+                 mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -1401,19 +1891,33 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                 "flash_attention": "src/repro/kernels/flash_attention.py:109",
                 "flash_decode": "src/repro/kernels/flash_decode.py:157",
                 "rwkv6_wkv": "src/repro/kernels/rwkv_wkv.py:94",
-                "mla_decode": "src/repro/kernels/mla_decode.py:133"}
+                "mla_decode": "src/repro/kernels/mla_decode.py:133",
+                # no TPU kernel: the reference differentiates lpt_loss through XLA
+                "score_ce_bwd": "src/repro/train/objectives.py:80",
+                "flash_attention_bwd": "src/repro/train/objectives.py:80"}
     sources = {"score_ce": "score_ce", "flash_attention": "flash_attention",
                "flash_decode": "flash_decode", "rwkv6_wkv": "rwkv_wkv",
-               "mla_decode": "mla_decode"}
-    worst = {**worst, "mla_decode": mla["worst"]}
+               "mla_decode": "mla_decode", "score_ce_bwd": "score_ce",
+               "flash_attention_bwd": "flash_attention_bwd"}
+    worst = {**worst, "mla_decode": mla["worst"], **bwd["worst"]}
     path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
+    tuning = lambda name: {"gpt2-base, tune (40 iterations, 4 evaluations)":
+                           tune["launches"][name],
+                           f"vicuna-7b, train_4k (3 steps, batch {train['batch']})":
+                           train["launches"][name]}
     paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
-        "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"],
+        "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
+                     + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
-                      **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"])}),
-        "flash_attention": (rows["flash_attention"],
-                            path("gpt2-base", launches["by_shape"]["flash_attention"])),
+                      **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
+                      **tuning("score_ce")}),
+        "flash_attention": (rows["flash_attention"] + bwd["rows"]["flash_attention"],
+                            {**path("gpt2-base", launches["by_shape"]["flash_attention"]),
+                             **tuning("flash_attention")}),
+        "score_ce_bwd": (bwd["rows"]["score_ce_bwd"], tuning("score_ce_bwd")),
+        "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
+                                tuning("flash_attention_bwd")),
         "flash_decode": ([serve], {"qwen2-7b, serve steps": serve["launches"]}),
         "rwkv6_wkv": (rwkv["rows"], path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"])),
         "mla_decode": (mla["rows"], {"deepseek-v2-236b, serve steps": mla_serve["launches"]}),
@@ -1421,7 +1925,10 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{sources[name]}.cu",
-             "replaces": replaces[name], "launches": sum(by_shape.values()),
+             "replaces": replaces[name],
+             **({"counterpart": "none: the reference differentiates lpt_loss through XLA"}
+                if name.endswith("_bwd") else {}),
+             "launches": sum(by_shape.values()),
              "launches_by_shape": by_shape, "max_abs_err": worst[name],
              **{k: rs[0][k] for k in keys}, "shapes": [{k: r[k] for k in keys} for r in rs[1:]]}
             for name, (rs, by_shape) in paths.items()]
@@ -1449,10 +1956,15 @@ def main() -> None:
     free_card()
     serve = phase_serve(dev, args.seed)
     rwkv = phase_rwkv(dev, args.seed)
+    free_card()
+    bwd = phase_backward_kernels(dev, args.seed)
+    tune = phase_tune_gpt2(dev, args.seed)
+    train = phase_train_vicuna(dev, args.seed)
+    free_card()
     mla = phase_mla_kernel(dev, args.seed)
     mla_serve = phase_mla_serve(dev, args.seed)
 
-    kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve)
+    kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

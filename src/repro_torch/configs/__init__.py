@@ -1,5 +1,6 @@
-"""Configurations of the models the port runs so far: dense GQA decoders,
-the RWKV6 family and the MLA + MoE family.
+"""Configurations of the models the port runs so far: dense GQA decoders
+(the paper's gpt2-base, gpt2-large and vicuna-7b among them), the RWKV6
+family and the MLA + MoE family.
 
 ``get_config(arch)`` returns the full configuration, ``smoke_config(arch)``
 the reduced variant the CPU tests use (2 layers, d_model 256), and
@@ -10,22 +11,33 @@ registry, so a name means the same model in both packages.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, List
 
 from repro_torch.config import ModelConfig
 from repro_torch.configs.deepseek_v2_236b import deepseek_v2_236b
 from repro_torch.configs.gpt2_base import gpt2_base
+from repro_torch.configs.gpt2_large import gpt2_large
 from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
+from repro_torch.configs.vicuna_7b import vicuna_7b
 
-_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {
-    "deepseek-v2-236b": deepseek_v2_236b,
-    "gpt2-base": gpt2_base,
-    "kimi-k2-1t-a32b": kimi_k2_1t_a32b,
-    "qwen2-7b": qwen2_7b,
-    "rwkv6-7b": rwkv6_7b,
-}
+_REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
+
+
+def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:
+    """Adds a config function under the name of the config it returns."""
+    _REGISTRY[fn().name] = fn
+    return fn
+
+
+for _fn in (deepseek_v2_236b, gpt2_base, gpt2_large, kimi_k2_1t_a32b, qwen2_7b, rwkv6_7b,
+            vicuna_7b):
+    register(_fn)
+
+
+def list_archs() -> List[str]:
+    return sorted(_REGISTRY)
 
 
 def get_config(arch: str) -> ModelConfig:
@@ -90,4 +102,4 @@ def testbed_config(name: str = "gpt2-base") -> ModelConfig:
     return ModelConfig(name=f"testbed-{name}", **base, **sizes[name])
 
 
-__all__ = ["get_config", "smoke_config", "testbed_config"]
+__all__ = ["get_config", "list_archs", "register", "smoke_config", "testbed_config"]

@@ -2,6 +2,9 @@ from repro_torch.core.bank_builder import (
     ScoreContext,
     build_bank,
     make_score_fn,
+    measure_ita,
+    select_ideal,
+    select_induction,
     select_manual,
 )
 from repro_torch.core.prompt_bank import LookupResult, PromptBank, PromptEntry
@@ -13,5 +16,8 @@ __all__ = [
     "ScoreContext",
     "build_bank",
     "make_score_fn",
+    "measure_ita",
+    "select_ideal",
+    "select_induction",
     "select_manual",
 ]

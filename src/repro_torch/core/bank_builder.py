@@ -1,20 +1,24 @@
-"""Assemble a Prompt Bank from task prompts and bind Eqn-1 scoring to a task.
+"""Assemble a Prompt Bank from task prompts, bind Eqn-1 scoring to a task,
+and the initial-prompt selection strategies the paper compares (§6.1, Fig 9).
 
-Counterparts of the reference's ``core/bank_builder.py``:
-``build_bank`` is ``build_bank_from_pretrain`` with the model and the task
-prompts passed in (the reference takes its JAX ``PretrainResult``), with the
-same numpy jitter, one batched feature extraction and the same cluster count.
+Counterparts of the reference's ``core/bank_builder.py``. The port has no
+``PretrainResult``, so where the reference takes one these take the model
+and the task prompts directly: ``build_bank`` is ``build_bank_from_pretrain``
+(the same numpy jitter, one batched feature extraction, the same cluster
+count), ``select_induction`` takes the task prompts, ``measure_ita`` the
+model, and ``select_manual`` the prompt's shape.
 """
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Mapping, Optional, Sequence
+from typing import Callable, Dict, List, Mapping, Optional, Sequence, Tuple
 
 import numpy as np
 
 from repro_torch.config import TuneConfig
 from repro_torch.core.prompt_bank import PromptBank, PromptEntry
 from repro_torch.data import LoaderConfig, TaskLoader, TaskSpec, batch_to_torch
+from repro_torch.models.convert import prompt_from_arrays
 from repro_torch.tuning import PromptTuner, activation_features
 
 
@@ -76,3 +80,47 @@ def select_manual(d_model: int, prompt_len: int, seed: int = 0) -> np.ndarray:
     """Manual initialization: a generic, uninformed prompt."""
     rng = np.random.default_rng(seed)
     return rng.normal(0, 0.5 / np.sqrt(d_model), (prompt_len, d_model)).astype(np.float32)
+
+
+def select_ideal(bank: PromptBank, score_ctx: ScoreContext,
+                 measure_ita: Callable[[np.ndarray], int], shortlist: int = 20
+                 ) -> Tuple[Optional[PromptEntry], float]:
+    """The paper's Ideal baseline: shortlist ``shortlist`` prompts by Eqn-1
+    score, then pick the one with the best measured ITA (infeasible online).
+    ``measure_ita(prompt) -> iterations``."""
+    scored = [(score_ctx(e), e) for e in bank.entries if e.origin != "<evicted>"]
+    scored.sort(key=lambda t: t[0])
+    best_entry, best_ita = None, float("inf")
+    for _, e in scored[:shortlist]:
+        ita = measure_ita(e.prompt)
+        if ita < best_ita:
+            best_ita, best_entry = ita, e
+    return best_entry, best_ita
+
+
+def select_induction(task_prompts: Mapping[str, np.ndarray], task: TaskSpec, *,
+                     capability: float = 0.5, seed: int = 0) -> np.ndarray:
+    """Induction initialization [88], the testbed's analog: an imperfect
+    recall of the family's optimized prompts whose fidelity grows with the
+    model's ``capability``. ``task_prompts`` {task_id: (P, d)} stands for
+    the reference's ``pre.task_prompts``."""
+    rng = np.random.default_rng(seed)
+    related = [np.asarray(p) for tid, p in task_prompts.items()
+               if tid.split(":")[0] == task.family]
+    base = np.mean(related, axis=0) if related else np.asarray(next(iter(task_prompts.values())))
+    noise_scale = (1.0 - capability) * 2.0 * (np.abs(base).mean() + 1e-6)
+    return (base * capability + rng.normal(0, noise_scale, base.shape)).astype(np.float32)
+
+
+def measure_ita(model, task: TaskSpec, prompt: np.ndarray, tune_cfg: TuneConfig, *,
+                target_loss: float, max_iters: int = 400,
+                loader: Optional[TaskLoader] = None) -> Tuple[int, bool]:
+    """Iterations-To-Accuracy: a real tuning run of ``model`` from ``prompt``
+    until the eval loss reaches ``target_loss``. Returns (iterations,
+    reached). ``loader`` defaults to the task's own; pass one to feed the
+    reference's batches (the two packages seed their loaders differently)."""
+    loader = loader or TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size))
+    res = PromptTuner(model, tune_cfg).tune(
+        loader, prompt_from_arrays({"soft_prompt": prompt}, model.device),
+        target_loss=target_loss, max_iters=max_iters)
+    return res["iters"], res["reached"]

@@ -107,8 +107,10 @@ def device_kind(*tensors: torch.Tensor) -> str:
 
 def check_launchable(name: str, *tensors: torch.Tensor) -> None:
     """Conditions every CUDA launch needs: contiguous rows 16-byte aligned
-    (the kernels load 16 bytes a thread) and no autograd graph (the kernels
-    are forward-only)."""
+    (the kernels load 16 bytes a thread) and no autograd graph. ``score_ce``
+    and ``flash_attention`` take gradients through their
+    ``torch.autograd.Function``s, which launch with grad disabled; the
+    kernels without a backward kernel refuse a call under autograd."""
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dim of every input must be contiguous")
@@ -116,8 +118,9 @@ def check_launchable(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only; run it under "
-                "torch.no_grad()")
+                f"{name}: the CUDA kernel is forward-only (it has no backward kernel, so "
+                f"no gradient can flow through it); run it under torch.no_grad(): tuning a "
+                f"prompt through {name} waits for its backward")
 
 
 def stream_ptr(device: torch.device) -> int:

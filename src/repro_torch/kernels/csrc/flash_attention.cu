@@ -41,6 +41,10 @@
 //     rounded to bf16 as the reference's XLA path rounds it to v's dtype.
 // Shared memory: hd = 64 45 KB, hd = 128 85 KB.
 //
+// Both element types can also write each row's log-sum-exp (a null pointer
+// writes nothing; the output is the same either way), which the backward in
+// flash_attention_bwd.cu reads.
+//
 // f32 keeps the CUDA-core design: the same tiling, K and Vᵀ loaded through
 // registers, P through shared memory, both products as f32 FMAs (Hopper's
 // tensor cores take f32 only as TF32). Scores, softmax and the output sum
@@ -58,6 +62,7 @@ namespace {
 constexpr int kRowsQ = 64;    // query rows per block: 4 warps × 16
 constexpr int kColsK = 64;    // KV columns per step
 constexpr int kThreads = 128;
+constexpr float kLn2 = 0.6931471805599453f;
 
 struct Strides { long long b, h, s; };   // in elements; the last dim is contiguous
 
@@ -92,7 +97,7 @@ template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     Strides sq, Strides sk, Strides sv, Strides so, int n_heads,
+                     float* __restrict__ lse, Strides sq, Strides sk, Strides sv, Strides so, int n_heads,
                      int n_kv_heads, int S, int L, int kv_len, int q_offset, int causal,
                      int window, float scale_log2) {
   using Lay = TcLayout<HD>;
@@ -245,8 +250,14 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 
   const int ra = r0 + g, rb = ra + 8;
-  const float ia = 1.f / fmaxf(quad_sum(lrow[0]), 1e-30f);
-  const float ib = 1.f / fmaxf(quad_sum(lrow[1]), 1e-30f);
+  const float la = quad_sum(lrow[0]), lb = quad_sum(lrow[1]);
+  const float ia = 1.f / fmaxf(la, 1e-30f);
+  const float ib = 1.f / fmaxf(lb, 1e-30f);
+  if (lse != nullptr && t == 0) {   // natural log of the row's sum over scaled scores
+    float* lr = lse + ((long long)b * n_heads + h) * S;
+    if (ra < S) lr[ra] = (mrow[0] + log2f(fmaxf(la, 1e-30f))) * kLn2;
+    if (rb < S) lr[rb] = (mrow[1] + log2f(fmaxf(lb, 1e-30f))) * kLn2;
+  }
 #pragma unroll
   for (int n = 0; n < NO; ++n) {
     const int d = 8 * n + 2 * t;
@@ -291,7 +302,7 @@ __device__ __forceinline__ void load_vt(float* vt, int ldv, const float* src, lo
 template <int HD>
 __global__ void __launch_bounds__(kThreads)
 flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, float* __restrict__ o,
+                    const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
                     Strides sq, Strides sk, Strides sv, Strides so,
                     int n_heads, int n_kv_heads, int S, int L, int kv_len,
                     int q_offset, int causal, int window, float scale) {
@@ -382,6 +393,11 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
   }
 
   const float da = fmaxf(la, 1e-30f), db = fmaxf(lb, 1e-30f);
+  if (lse != nullptr && t == 0) {
+    float* lr = lse + ((long long)b * n_heads + h) * S;
+    if (ra < S) lr[ra] = ma + logf(da);
+    if (rb < S) lr[rb] = mb + logf(db);
+  }
 #pragma unroll
   for (int n = 0; n < HD / 8; ++n)
 #pragma unroll
@@ -393,7 +409,7 @@ flash_attention_f32(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 template <int HD>
-int launch_hd(const void* q, const void* k, const void* v, void* o, const Strides* st, int B,
+int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, const Strides* st, int B,
               int H, int Hkv, int S, int L, int kv_len, int q_offset, int causal, int window,
               int is_bf16, float scale, cudaStream_t stream) {
   if (is_bf16) {
@@ -405,7 +421,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, const Stride
     using T = __nv_bfloat16;
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-        static_cast<T*>(o), st[0], st[1], st[2], st[3], H, Hkv, S, L, kv_len, q_offset, causal,
+        static_cast<T*>(o), lse, st[0], st[1], st[2], st[3], H, Hkv, S, L, kv_len, q_offset, causal,
         window, scale * kLog2e);
   } else {
     const dim3 grid((S + kRowsQ - 1) / kRowsQ, H, B);
@@ -415,7 +431,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, const Stride
     if (err != cudaSuccess) return (int)err;
     kern<<<grid, kThreads, bytes, stream>>>(
         static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-        static_cast<float*>(o), st[0], st[1], st[2], st[3], H, Hkv, S, L, kv_len, q_offset,
+        static_cast<float*>(o), lse, st[0], st[1], st[2], st[3], H, Hkv, S, L, kv_len, q_offset,
         causal, window, scale);
   }
   return (int)cudaGetLastError();
@@ -424,11 +440,13 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, const Stride
 }  // namespace
 
 // q, o: (B, H, S, hd); k, v: (B, Hkv, L, hd), each given by its (b, h, s)
-// strides in elements with hd contiguous. Returns cudaGetLastError() after
-// the launch (0 on success), or cudaErrorInvalidValue for a head dim
+// strides in elements with hd contiguous; lse, if not null, (B, H, S) f32
+// contiguous: each row's natural log-sum-exp of its scaled live scores
+// (below -1e29 for a row with no live column). Returns cudaGetLastError()
+// after the launch (0 on success), or cudaErrorInvalidValue for a head dim
 // without a template.
 extern "C" int flash_attention_launch(
-    const void* q, const void* k, const void* v, void* o,
+    const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_b, long long q_h, long long q_s, long long k_b, long long k_h, long long k_s,
     long long v_b, long long v_h, long long v_s, long long o_b, long long o_h, long long o_s,
     int B, int H, int Hkv, int S, int L, int kv_len, int q_offset, int causal, int window,
@@ -436,10 +454,10 @@ extern "C" int flash_attention_launch(
   const Strides st[4] = {{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s}, {o_b, o_h, o_s}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
-    return launch_hd<64>(q, k, v, o, st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
+    return launch_hd<64>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
                          is_bf16, scale, s);
   if (head_dim == 128)
-    return launch_hd<128>(q, k, v, o, st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
+    return launch_hd<128>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
                           is_bf16, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -42,6 +42,20 @@
 //     and the hidden tiles are re-read from L2.
 // f32 keeps the first design: a block of 4 warps computes 64 × 64 tiles
 // with f32 FMAs, both tiles loaded through registers each 32-deep chunk.
+//
+// The combine pass can also write each row's log-sum-exp (a null pointer
+// writes nothing), which the backward reads.
+//
+// Backward (score_ce_bwd_launch; no TPU counterpart: the reference takes
+// this gradient through XLA). For one vocabulary chunk it recomputes the
+// logits with the forward's main loop (bf16: one block per 128 × 256 tile,
+// the same TMA ring and wgmma products; f32: 64 × 64 tiles) and writes, as
+// its epilogue, G = g · (softmax − onehot(label)) from the saved
+// log-sum-exp, in hidden's element type as XLA rounds the logits' gradient
+// to the operands' type. The caller multiplies G by the chunk's emb rows
+// (a plain GEMM), so only a (T, chunk) slice of the (T, V) gradient is ever
+// in memory. Bound: the same products as the forward plus T × chunk
+// elements written and read back by that GEMM.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -406,11 +420,13 @@ score_ce_bf16(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ 
   }
 }
 
-// One warp per row: the lanes read the splits' partials in parallel.
+// One warp per row: the lanes read the splits' partials in parallel. With a
+// non-null lse it also writes each row's log-sum-exp, which the backward reads.
 __global__ void score_ce_combine(const float* __restrict__ part_m,
                                  const float* __restrict__ part_l,
                                  const float* __restrict__ part_g,
-                                 float* __restrict__ nll, int n_tok, int n_split) {
+                                 float* __restrict__ nll, float* __restrict__ lse,
+                                 int n_tok, int n_split) {
   const int r = blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5), lane = threadIdx.x & 31;
   if (r >= n_tok) return;
   float M = -INFINITY;
@@ -428,7 +444,173 @@ __global__ void score_ce_combine(const float* __restrict__ part_m,
     L += __shfl_xor_sync(0xffffffffu, L, o);
     G += __shfl_xor_sync(0xffffffffu, G, o);
   }
-  if (lane == 0) nll[r] = M + logf(fmaxf(L, 1e-30f)) - G;
+  if (lane == 0) {
+    const float lz = M + logf(fmaxf(L, 1e-30f));
+    nll[r] = lz - G;
+    if (lse != nullptr) lse[r] = lz;
+  }
+}
+
+// -- backward: dL/dlogits of one vocabulary chunk -----------------------------------
+//
+// G[r, c - c0] = g_r · (exp(logit[r, c] − lse_r) − [c == label_r]) for the
+// columns c of [c0, v_end), zero in the padding columns up to ldg. The
+// logits are recomputed by the forward's main loop; dh = G · E[c0:v_end] is
+// left to a matrix product outside the kernel, as the reference leaves it to
+// XLA. E is frozen, so no dE is formed.
+
+// The consumer warpgroups' part of score_ce_bwd_bf16: one 128 × 256 tile.
+__device__ __forceinline__ void consume_bwd(uint8_t* sa, uint8_t* sb, uint64_t* full,
+                                            uint64_t* empty, const int* __restrict__ labels,
+                                            const float* __restrict__ lse,
+                                            const float* __restrict__ gout,
+                                            __nv_bfloat16* __restrict__ G, int ldg, int n_tok,
+                                            int c0, int v_end, int row0, int v0, int n_k) {
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int r0 = row0 + 64 * wg + 16 * (warp & 3) + g, r1 = r0 + 8;
+  const uint32_t a_base = smem_u32(sa) + 64 * wg * kBK * 2, b_base = smem_u32(sb);
+  float acc[128];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int stage = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_k; ++kt) {
+    mbar_wait(&full[stage], phase);
+    wgmma_fence();
+    const uint64_t da = sw128_desc(a_base + stage * kStageA);
+    const uint64_t db = sw128_desc(b_base + stage * kStageB);
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kt > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<1>();
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_acc(acc);
+  __syncwarp();
+  if (lane == 0) mbar_arrive(&empty[prev]);
+
+  const bool in0 = r0 < n_tok, in1 = r1 < n_tok;
+  const float l0 = in0 ? lse[r0] * kLog2e : 0.f, l1 = in1 ? lse[r1] * kLog2e : 0.f;
+  const float s0 = in0 ? gout[r0] : 0.f, s1 = in1 ? gout[r1] : 0.f;
+  const int y0 = in0 ? labels[r0] : -1, y1 = in1 ? labels[r1] : -1;
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+    const int col = v0 + 8 * j + 2 * t, lc = col - c0;
+    if (lc >= ldg) continue;
+    float v[4];
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const bool live = col + e < v_end;
+      v[e] = live ? s0 * (exp2_approx(fmaf(acc[4 * j + e], kLog2e, -l0)) -
+                          (col + e == y0 ? 1.f : 0.f)) : 0.f;
+      v[2 + e] = live ? s1 * (exp2_approx(fmaf(acc[4 * j + 2 + e], kLog2e, -l1)) -
+                              (col + e == y1 ? 1.f : 0.f)) : 0.f;
+    }
+    if (in0)
+      *reinterpret_cast<__nv_bfloat162*>(G + (long long)r0 * ldg + lc) =
+          __floats2bfloat162_rn(v[0], v[1]);
+    if (in1)
+      *reinterpret_cast<__nv_bfloat162*>(G + (long long)r1 * ldg + lc) =
+          __floats2bfloat162_rn(v[2], v[3]);
+  }
+}
+
+// One block per (128-row tile, 256-column vocabulary tile of the chunk): the
+// forward's producer and main loop over the depth, then the G epilogue.
+__global__ void __launch_bounds__(kTcThreads, 1)
+score_ce_bwd_bf16(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_e,
+                  const int* __restrict__ labels, const float* __restrict__ lse,
+                  const float* __restrict__ gout, __nv_bfloat16* __restrict__ G, int ldg,
+                  int n_tok, int dim, int c0, int v_end, int row_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem;
+  uint8_t* sb = smem + kStages * kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int row0 = (blockIdx.x % row_tiles) * kBM;
+  const int v0 = c0 + (blockIdx.x / row_tiles) * kBN;
+  const int n_k = (dim + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  if (wg == kConsumerWarps / 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_k; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kStageA + kStageB);
+        tma_load_2d(sa + stage * kStageA, &tm_h, &full[stage], kt * kBK, row0);
+        tma_load_2d(sb + stage * kStageB, &tm_e, &full[stage], kt * kBK, v0);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume_bwd(sa, sb, full, empty, labels, lse, gout, G, ldg, n_tok, c0, v_end, row0, v0, n_k);
+  }
+}
+
+// f32: 64 × 64 tiles on the CUDA cores, as the f32 forward.
+__global__ void __launch_bounds__(kThreads)
+score_ce_bwd_f32(const float* __restrict__ hidden, const float* __restrict__ emb,
+                 const int* __restrict__ labels, const float* __restrict__ lse,
+                 const float* __restrict__ gout, float* __restrict__ G, int ldg, int n_tok,
+                 int dim, int vocab, int c0, int v_end) {
+  __shared__ __align__(16) float hs[kRows * kLd];
+  __shared__ __align__(16) float es[kCols * kLd];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int t = lane & 3;
+  const int row0 = blockIdx.x * kRows, v0 = c0 + blockIdx.y * kCols;
+  float acc[8][4];
+#pragma unroll
+  for (int j = 0; j < 8; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
+  for (int k0 = 0; k0 < dim; k0 += kKc) {
+    __syncthreads();
+    load_tile<float, kRows, kKc, kThreads>(hs, kLd, hidden, dim, row0, n_tok, k0, dim);
+    load_tile<float, kCols, kKc, kThreads>(es, kLd, emb, dim, v0, vocab, k0, dim);
+    __syncthreads();
+    warp_tile_mma<8, kKc>(hs + warp * 16 * kLd, kLd, es, kLd, acc);
+  }
+  const int r0 = row0 + warp * 16 + (lane >> 2), r1 = r0 + 8;
+  const bool in0 = r0 < n_tok, in1 = r1 < n_tok;
+  const float l0 = in0 ? lse[r0] : 0.f, l1 = in1 ? lse[r1] : 0.f;
+  const float s0 = in0 ? gout[r0] : 0.f, s1 = in1 ? gout[r1] : 0.f;
+  const int y0 = in0 ? labels[r0] : -1, y1 = in1 ? labels[r1] : -1;
+#pragma unroll
+  for (int j = 0; j < 8; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = v0 + 8 * j + 2 * t + e, lc = col - c0;
+      if (lc >= ldg) continue;
+      const bool live = col < v_end;
+      if (in0)
+        G[(long long)r0 * ldg + lc] =
+            live ? s0 * (expf(acc[j][e] - l0) - (col == y0 ? 1.f : 0.f)) : 0.f;
+      if (in1)
+        G[(long long)r1 * ldg + lc] =
+            live ? s1 * (expf(acc[j][2 + e] - l1) - (col == y1 ? 1.f : 0.f)) : 0.f;
+    }
 }
 
 // cuTensorMapEncodeTiled from the libcuda the process already loaded (no
@@ -471,7 +653,7 @@ bool bf16_map(CUtensorMap* map, const void* base, int rows, int dim, int box_row
 // after the launches (0 on success), or cudaErrorInvalidValue if a tensor
 // map cannot be made.
 extern "C" int score_ce_launch(const void* hidden, const void* emb, const void* labels,
-                               void* part, void* nll, int n_tok, int dim, int vocab,
+                               void* part, void* nll, void* lse, int n_tok, int dim, int vocab,
                                int n_split, int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   float* pm = static_cast<float*>(part);
@@ -501,6 +683,44 @@ extern "C" int score_ce_launch(const void* hidden, const void* emb, const void* 
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   score_ce_combine<<<(n_tok + 7) / 8, 256, 0, s>>>(pm, pl, pg, static_cast<float*>(nll),
-                                                  n_tok, n_split);
+                                                  static_cast<float*>(lse), n_tok, n_split);
+  return (int)cudaGetLastError();
+}
+
+// The backward over one vocabulary chunk [c0, c0 + width): G (n_tok × ldg,
+// hidden's element type; ldg even and at least width) = g · (softmax −
+// onehot) on the chunk's columns, zero past V and in the padding. lse and
+// g are n_tok f32. Returns cudaGetLastError() after the launch (0 on
+// success), or cudaErrorInvalidValue if a tensor map cannot be made.
+extern "C" int score_ce_bwd_launch(const void* hidden, const void* emb, const void* labels,
+                                   const void* lse, const void* gout, void* G, int ldg,
+                                   int n_tok, int dim, int vocab, int c0, int width,
+                                   int is_bf16, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int v_end = c0 + width < vocab ? c0 + width : vocab;
+  const int* lab = static_cast<const int*>(labels);
+  const float* lz = static_cast<const float*>(lse);
+  const float* go = static_cast<const float*>(gout);
+  if (is_bf16) {
+    CUtensorMap tm_h, tm_e;
+    if (!bf16_map(&tm_h, hidden, n_tok, dim, kBM) || !bf16_map(&tm_e, emb, vocab, dim, kBN))
+      return (int)cudaErrorInvalidValue;
+    static bool attr = false;
+    if (!attr) {
+      const cudaError_t e = cudaFuncSetAttribute(
+          score_ce_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+      if (e != cudaSuccess) return (int)e;
+      attr = true;
+    }
+    const int row_tiles = (n_tok + kBM - 1) / kBM, col_tiles = (width + kBN - 1) / kBN;
+    score_ce_bwd_bf16<<<row_tiles * col_tiles, kTcThreads, kTcSmem, s>>>(
+        tm_h, tm_e, lab, lz, go, static_cast<__nv_bfloat16*>(G), ldg, n_tok, dim, c0, v_end,
+        row_tiles);
+  } else {
+    const dim3 grid((n_tok + kRows - 1) / kRows, (width + kCols - 1) / kCols);
+    score_ce_bwd_f32<<<grid, kThreads, 0, s>>>(
+        static_cast<const float*>(hidden), static_cast<const float*>(emb), lab, lz, go,
+        static_cast<float*>(G), ldg, n_tok, dim, vocab, c0, v_end);
+  }
   return (int)cudaGetLastError();
 }

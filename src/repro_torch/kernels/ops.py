@@ -21,14 +21,22 @@ from repro_torch.kernels.score_ce import score_ce
 MAX_HEAD_DIM = 256   # the reference adapters' head-dim limit, kept as its error contract
 
 
+def fused_token_nll(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """Per-token NLL in model layout, zero where ``mask`` is: hidden (B, S, d),
+    emb (V, d), labels/mask (B, S) -> (B, S) f32. Under autograd ``score_ce``
+    takes its gradient through its backward kernel."""
+    B, S, d = hidden.shape
+    nll = score_ce(hidden.reshape(B * S, d).contiguous(), emb,
+                   labels.reshape(-1).to(torch.int32).contiguous())
+    return nll.reshape(B, S) * mask
+
+
 def fused_score_ce(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
                    mask: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Eqn-1 scoring in model layout: hidden (B, S, d), emb (V, d),
     labels/mask (B, S). Returns (mean over masked tokens, per-example (B,))."""
-    B, S, d = hidden.shape
-    nll = score_ce(hidden.reshape(B * S, d).contiguous(), emb,
-                   labels.reshape(-1).to(torch.int32).contiguous())
-    nll = nll.reshape(B, S) * mask
+    nll = fused_token_nll(hidden, emb, labels, mask)
     per_ex = nll.sum(dim=-1) / mask.sum(dim=-1).clamp_min(1.0)
     mean = nll.sum() / mask.sum().clamp_min(1.0)
     return mean, per_ex
@@ -38,7 +46,9 @@ def gqa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
               causal: bool = True, window: int = 0, q_offset: int = 0,
               kv_len: Optional[int] = None) -> torch.Tensor:
     """Model layout adapter: q (B, S, H, hd), k/v (B, L, Hkv, hd) ->
-    (B, S, H, hd). The kernel reads the transposed views in place."""
+    (B, S, H, hd). The kernel reads the transposed views in place. Under
+    autograd the call goes through ``FlashAttention``, whose backward is the
+    hand-written dQ/dK/dV kernel."""
     hd = q.shape[-1]
     if hd > MAX_HEAD_DIM:
         raise ValueError(

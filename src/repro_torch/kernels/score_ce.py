@@ -8,6 +8,12 @@ design and bounds are in ``csrc/score_ce.cu``.
 ``score_ce`` launches the kernel for CUDA tensors and uses
 ``score_ce_plain`` only for CPU tensors. ``score_ce.launches`` counts the
 kernel's launches (the main kernel and its combine pass count as one).
+
+Under autograd (grad enabled and ``hidden`` requiring it) the call goes
+through ``ScoreCE``: its forward also keeps each token's log-sum-exp, and
+its backward is ``score_ce_bwd``, dL/dhidden only (the embedding is frozen,
+as the reference's model is). The reference has no such kernel: it takes
+this gradient through XLA.
 """
 from __future__ import annotations
 
@@ -23,18 +29,33 @@ from repro_torch.kernels import _build
 TILES = {torch.bfloat16: (128, 256, 1), torch.float32: (64, 64, 4)}
 
 
-def score_ce_plain(hidden: torch.Tensor, emb: torch.Tensor,
-                   labels: torch.Tensor) -> torch.Tensor:
-    """Full-logits log-softmax gather in f32: the same function written out."""
+def score_ce_plain(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                   return_lse: bool = False):
+    """Full-logits log-softmax gather in f32: the same function written out.
+    With ``return_lse`` also each token's log-sum-exp (T,) f32."""
     logits = hidden.float() @ emb.float().T
     gold = logits.gather(-1, labels.long()[:, None])[:, 0]
-    return torch.logsumexp(logits, dim=-1) - gold
+    lse = torch.logsumexp(logits, dim=-1)
+    return (lse - gold, lse) if return_lse else lse - gold
+
+
+def score_ce_bwd_plain(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                       lse: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """dL/dhidden written out in f32 with the whole (T, V) logits:
+    (grad · (softmax − onehot(labels))) @ emb, in hidden's dtype."""
+    logits = hidden.float() @ emb.float().T
+    g = torch.exp(logits - lse.float()[:, None])
+    g[torch.arange(len(labels), device=g.device), labels.long()] -= 1.0
+    return ((grad.float()[:, None] * g) @ emb.float()).to(hidden.dtype)
 
 
 def _lib() -> ctypes.CDLL:
     lib = _build.load("score_ce")
     fn = lib.score_ce_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    fn = lib.score_ce_bwd_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     return lib
 
@@ -48,12 +69,9 @@ def num_splits(n_tok: int, vocab: int, sms: int, dtype: torch.dtype) -> int:
     return max(1, min(-(-vocab // cols), per_sm * sms // row_tiles))
 
 
-def score_ce(hidden: torch.Tensor, emb: torch.Tensor,
-             labels: torch.Tensor) -> torch.Tensor:
-    """hidden (T, D) and emb (V, D) in f32 or bf16, labels (T,) int32 ->
-    nll (T,) f32."""
-    if _build.device_kind(hidden, emb, labels) == "cpu":
-        return score_ce_plain(hidden, emb, labels)
+def _check(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, name: str,
+           *others) -> None:
+    """What the CUDA kernels take: shapes, dtypes, contiguity."""
     if hidden.dim() != 2 or emb.dim() != 2 or labels.shape != hidden.shape[:1]:
         raise ValueError("score_ce: expects hidden (T, D), emb (V, D), labels (T,), "
                          f"got {tuple(hidden.shape)}, {tuple(emb.shape)}, "
@@ -71,23 +89,116 @@ def score_ce(hidden: torch.Tensor, emb: torch.Tensor,
         raise ValueError(f"score_ce: D={D} must be a multiple of 8")
     if T == 0 or V == 0:
         raise ValueError("score_ce: empty input")
-    for t in (hidden, emb, labels):
+    for t in (hidden, emb, labels, *others):
         if not t.is_contiguous():
             raise ValueError("score_ce: inputs must be contiguous")
-    _build.check_launchable("score_ce", hidden, emb, labels)
+    _build.check_launchable(name, hidden, emb, labels, *others)
 
+
+def _forward(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor, with_lse: bool):
+    """(nll, lse or None): the kernel (CUDA tensors) or the plain version."""
+    if _build.device_kind(hidden, emb, labels) == "cpu":
+        if with_lse:
+            return score_ce_plain(hidden, emb, labels, return_lse=True)
+        return score_ce_plain(hidden, emb, labels), None
+    _check(hidden, emb, labels, "score_ce")
+    T, D = hidden.shape
+    V = emb.shape[0]
     n_split = num_splits(T, V, torch.cuda.get_device_properties(hidden.device).multi_processor_count,
                          hidden.dtype)
     part = torch.empty((3, n_split, T), dtype=torch.float32, device=hidden.device)
     nll = torch.empty((T,), dtype=torch.float32, device=hidden.device)
+    lse = torch.empty((T,), dtype=torch.float32, device=hidden.device) if with_lse else None
     rc = _lib().score_ce_launch(
         hidden.data_ptr(), emb.data_ptr(), labels.data_ptr(), part.data_ptr(),
-        nll.data_ptr(), T, D, V, n_split, int(hidden.dtype == torch.bfloat16),
-        _build.stream_ptr(hidden.device))
+        nll.data_ptr(), lse.data_ptr() if with_lse else None, T, D, V, n_split,
+        int(hidden.dtype == torch.bfloat16), _build.stream_ptr(hidden.device))
     if rc:
         raise RuntimeError(f"score_ce: kernel launch failed with CUDA error {rc}")
     score_ce.launches += 1
-    return nll
+    return nll, lse
+
+
+def score_ce(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+             return_lse: bool = False):
+    """hidden (T, D) and emb (V, D) in f32 or bf16, labels (T,) int32 ->
+    nll (T,) f32, and with ``return_lse`` also the log-sum-exp (T,) f32.
+    Under autograd the call goes through ``ScoreCE``."""
+    if torch.is_grad_enabled() and (hidden.requires_grad or emb.requires_grad):
+        if emb.requires_grad:
+            raise NotImplementedError("score_ce: no gradient for emb (the model is frozen); "
+                                      "pass a tensor that does not require grad")
+        if return_lse:
+            raise ValueError("score_ce: return_lse is not differentiable")
+        return ScoreCE.apply(hidden, emb, labels)
+    nll, lse = _forward(hidden, emb, labels, return_lse)
+    return (nll, lse) if return_lse else nll
 
 
 score_ce.launches = 0
+
+# Bytes of one (T, chunk) slice of the backward's logits gradient.
+BWD_CHUNK_BYTES = 1 << 28
+
+
+def bwd_chunk(n_tok: int, vocab: int, dtype: torch.dtype) -> int:
+    """Vocabulary columns per backward chunk: a multiple of the bf16 tile
+    (256) whose (T, chunk) slice stays within BWD_CHUNK_BYTES, at least one
+    tile, at most the vocabulary rounded up to a tile."""
+    elt = torch.tensor([], dtype=dtype).element_size()
+    cols = max(256, BWD_CHUNK_BYTES // (max(n_tok, 1) * elt) // 256 * 256)
+    return min(cols, -(-vocab // 256) * 256)
+
+
+def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
+                 lse: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+    """dL/dhidden (T, D) in hidden's dtype for dL/dnll = ``grad`` (T,), given
+    the forward's log-sum-exp: for CUDA tensors the kernel, one launch a
+    vocabulary chunk writing that chunk's G = grad · (softmax − onehot), each
+    G times the chunk's emb rows summed in f32; for CPU tensors
+    ``score_ce_bwd_plain``."""
+    if _build.device_kind(hidden, emb, labels, lse, grad) == "cpu":
+        return score_ce_bwd_plain(hidden, emb, labels, lse, grad)
+    grad = grad.float().contiguous()
+    _check(hidden, emb, labels, "score_ce_bwd", lse, grad)
+    if lse.dtype != torch.float32 or lse.shape != labels.shape:
+        raise ValueError("score_ce_bwd: lse must be (T,) f32")
+    T, D = hidden.shape
+    V = emb.shape[0]
+    chunk = bwd_chunk(T, V, hidden.dtype)
+    is_bf16 = int(hidden.dtype == torch.bfloat16)
+    dh = torch.zeros((T, D), dtype=torch.float32, device=hidden.device)
+    lib = _lib()
+    for c0 in range(0, V, chunk):
+        width = min(chunk, V - c0)
+        ldg = -(-width // 8) * 8
+        G = torch.empty((T, ldg), dtype=hidden.dtype, device=hidden.device)
+        rc = lib.score_ce_bwd_launch(
+            hidden.data_ptr(), emb.data_ptr(), labels.data_ptr(), lse.data_ptr(),
+            grad.data_ptr(), G.data_ptr(), ldg, T, D, V, c0, width, is_bf16,
+            _build.stream_ptr(hidden.device))
+        if rc:
+            raise RuntimeError(f"score_ce_bwd: kernel launch failed with CUDA error {rc}")
+        score_ce_bwd.launches += 1
+        dh += G[:, :width] @ emb[c0:c0 + width]
+    return dh.to(hidden.dtype)
+
+
+score_ce_bwd.launches = 0
+
+
+class ScoreCE(torch.autograd.Function):
+    """``score_ce`` with its backward: the forward keeps hidden, labels and
+    the log-sum-exp; the backward is ``score_ce_bwd`` (no gradient for emb
+    or labels)."""
+
+    @staticmethod
+    def forward(ctx, hidden, emb, labels):
+        nll, lse = _forward(hidden, emb, labels, with_lse=True)
+        ctx.save_for_backward(hidden, emb, labels, lse)
+        return nll
+
+    @staticmethod
+    def backward(ctx, grad):
+        hidden, emb, labels, lse = ctx.saved_tensors
+        return score_ce_bwd(hidden, emb, labels, lse, grad), None, None

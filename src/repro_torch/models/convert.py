@@ -1,5 +1,7 @@
 """Weights from the JAX package: its parameter tree and its ``.npz``
-checkpoints, read with numpy alone.
+checkpoints, read with numpy alone; and a tuning run's state (prompt
+parameters and the optimizer's ``OptState``), so that both packages can
+start from one mid-run state.
 
 The reference stacks each segment's per-layer parameters on a leading axis
 (``blocks/attn/wq`` is (L, d, H, hd), ``moe/moe/w_gate`` (L, E, d, dff));
@@ -8,10 +10,12 @@ transposes nothing: both packages use the same layouts.
 """
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import numpy as np
 import torch
+
+from repro_torch.train.optimizer import OptState
 
 STACKED = ("blocks", "dense0", "moe")   # segments whose parameters carry a layer axis
 
@@ -62,3 +66,30 @@ def load_jax_checkpoint(path: str) -> Dict:
                 node = node.setdefault(p, {})
             node[leaf] = data[key]
     return root
+
+
+def prompt_from_arrays(prompt_params: Dict, device) -> Dict[str, torch.Tensor]:
+    """Prompt parameters from arrays: the reference's ({"soft_prompt": (P, d),
+    and for the prefix variant "reparam_w"/"reparam_v"}) or any numpy
+    arrays, as f32 leaves on ``device`` that require grad."""
+    return {k: _to_tensor(v).float().to(device).requires_grad_(True)
+            for k, v in prompt_params.items()}
+
+
+def opt_state_from_jax(state, device) -> OptState:
+    """The reference's ``OptState(step, mu, nu)`` (arrays, or None where SGD
+    keeps no moment) as the port's, on ``device``."""
+    def tree(t: Optional[Dict]) -> Optional[Dict[str, torch.Tensor]]:
+        return None if t is None else {k: _to_tensor(v).float().to(device) for k, v in t.items()}
+
+    step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
+    return OptState(step, tree(state.mu), tree(state.nu))
+
+
+def opt_state_to_numpy(state: OptState) -> Dict[str, Any]:
+    """{"step": int, "mu": {name: array}, "nu": ...}: the port's state as
+    numpy, to hold against the reference's."""
+    def tree(t):
+        return None if t is None else {k: v.detach().cpu().numpy() for k, v in t.items()}
+
+    return {"step": int(state.step), "mu": tree(state.mu), "nu": tree(state.nu)}

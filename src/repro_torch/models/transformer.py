@@ -198,7 +198,10 @@ class Model(nn.Module):
     weights drawn from ``seed``, or left uninitialised for a caller that
     loads them when ``seed`` is None. Each of ``segments`` is an
     ``nn.ModuleList`` attribute of its name (``blocks``, or ``dense0`` and
-    ``moe``)."""
+    ``moe``). The weights are frozen (``requires_grad`` False, also after
+    ``load_state_dict``), as the reference's are under LPT: a forward keeps
+    no autograd graph unless the prompt requires grad, and then the graph
+    carries the prompt's gradient alone."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  seed: Optional[int] = 0):
@@ -223,6 +226,7 @@ class Model(nn.Module):
         for seg in self.segments:
             setattr(self, seg.name, nn.ModuleList(
                 BLOCKS[seg.kind](cfg, device=dev, dtype=pdt) for _ in range(seg.count)))
+        self.requires_grad_(False)          # frozen, as the reference's: gradients reach the prompt only
         if seed is not None:
             self.init_weights(seed)
 
@@ -253,6 +257,7 @@ class Model(nn.Module):
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         result = super().load_state_dict(state_dict, strict=strict, assign=assign)
+        self.requires_grad_(False)          # ``assign`` may bring in tensors that require grad
         self._refresh_output_embedding()
         return result
 

@@ -78,7 +78,9 @@ def as_if_cuda(monkeypatch):
         raise FellBack
 
     monkeypatch.setattr(sc_mod, "score_ce_plain", fell_back)
+    monkeypatch.setattr(sc_mod, "score_ce_bwd_plain", fell_back)
     monkeypatch.setattr(fa_mod, "flash_attention_plain", fell_back)
+    monkeypatch.setattr(fa_mod, "flash_attention_bwd_plain", fell_back)
     monkeypatch.setattr(fd_mod, "flash_decode_plain", fell_back)
     monkeypatch.setattr(fd_mod, "combine_partials_plain", fell_back)
     monkeypatch.setattr(rw_mod, "rwkv6_wkv_plain", fell_back)
@@ -118,12 +120,43 @@ def test_flash_attention_raises_on_cuda_misuse(as_if_cuda):
     _raises_without_fallback(lambda: fa_mod.flash_attention(q, kv[:, :1].expand(1, 3, 8, 64),
                                                             kv[:, :1].expand(1, 3, 8, 64)),
                              ValueError, "H % Hkv")
-    grad_q = q.clone().requires_grad_(True)
-    _raises_without_fallback(lambda: fa_mod.flash_attention(grad_q, kv, kv),
-                             NotImplementedError, "forward-only")
     before = fa_mod.flash_attention.launches
     _raises_without_fallback(lambda: fa_mod.flash_attention(q, kv, kv))
+    # under autograd the call goes through FlashAttention to the same launch
+    grad_q = q.clone().requires_grad_(True)
+    with pytest.raises(Exception) as info:
+        fa_mod.flash_attention(grad_q, kv, kv)
+    assert not isinstance(info.value, (FellBack, NotImplementedError))
     assert fa_mod.flash_attention.launches == before
+
+
+def test_backward_wrappers_raise_on_cuda_misuse(as_if_cuda):
+    """The two backward wrappers check what their kernels take and, handed
+    CUDA tensors, launch or raise; they never fall back."""
+    h, e = torch.zeros(8, 16), torch.zeros(32, 16)
+    lab = torch.zeros(8, dtype=torch.int32)
+    lse, g = torch.zeros(8), torch.ones(8)
+    _raises_without_fallback(lambda: sc_mod.score_ce_bwd(h, e, lab, lse.double(), g),
+                             ValueError, "lse")
+    _raises_without_fallback(lambda: sc_mod.score_ce_bwd(h, e, lab.long(), lse, g),
+                             ValueError, "int32")
+    before = sc_mod.score_ce_bwd.launches
+    _raises_without_fallback(lambda: sc_mod.score_ce_bwd(h, e, lab, lse, g))
+    assert sc_mod.score_ce_bwd.launches == before
+    with pytest.raises(NotImplementedError, match="frozen"):
+        sc_mod.score_ce(h.requires_grad_(True), e.clone().requires_grad_(True), lab)
+
+    q, kv = torch.zeros(1, 4, 8, 64), torch.zeros(1, 2, 8, 64)
+    lse = torch.zeros(1, 4, 8)
+    _raises_without_fallback(lambda: fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse[..., :4]),
+                             ValueError, "lse")
+    _raises_without_fallback(lambda: fa_mod.flash_attention_bwd(q[..., :32], kv[..., :32],
+                                                                kv[..., :32], q[..., :32],
+                                                                q[..., :32], lse),
+                             ValueError, "head_dim=32")
+    before = fa_mod.flash_attention_bwd.launches
+    _raises_without_fallback(lambda: fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse))
+    assert fa_mod.flash_attention_bwd.launches == before
 
 
 def test_flash_decode_raises_on_cuda_misuse(as_if_cuda):

@@ -1,7 +1,8 @@
 """The port's dense model against the JAX package's, on the smoke configs.
 
 gpt2-base's smoke config is LayerNorm, GELU, QKV bias, tied embeddings and
-GQA 4/2; qwen2-7b's is RMSNorm, SwiGLU and untied embeddings. The weights
+GQA 4/2; qwen2-7b's is RMSNorm, SwiGLU and untied embeddings; gpt2-large's
+and vicuna-7b's (the paper's other two evaluation models) cut the same way. The weights
 are made with numpy in the JAX parameter tree's shapes and handed to both
 packages: the reference's own init draws wq with std 1/sqrt(H), whose sharp
 attention amplifies f32 rounding to ~5e-5 in the logits, while weights at
@@ -23,7 +24,7 @@ from repro_torch.models import common
 from repro_torch.train import lpt_loss, token_cross_entropy
 
 TOL = 1e-5
-ARCHS = ["gpt2-base", "qwen2-7b"]
+ARCHS = ["gpt2-base", "qwen2-7b", "gpt2-large", "vicuna-7b"]
 
 
 def numpy_params(jmodel, seed):
@@ -156,3 +157,17 @@ def test_load_jax_checkpoint_roundtrip(tmp_path):
     np.testing.assert_array_equal(model.blocks[1].attn.wq.detach().numpy(),
                                   tree["blocks"]["attn"]["wq"][1])
     np.testing.assert_array_equal(model.unembed.detach().numpy(), tree["unembed"])
+
+
+@pytest.mark.parametrize("arch", ["gpt2-base", "gpt2-large", "vicuna-7b", "qwen2-7b",
+                                  "rwkv6-7b", "deepseek-v2-236b", "kimi-k2-1t-a32b"])
+def test_config_equals_the_reference_field_by_field(arch):
+    """Every config the port registers is the reference's, field by field,
+    and so is its smoke cut."""
+    import dataclasses
+    from repro.configs import get_config as jax_get_config
+    from repro_torch.configs import get_config, list_archs
+    assert arch in list_archs()
+    for ours, ref in ((get_config(arch), jax_get_config(arch)),
+                      (smoke_config(arch), jax_smoke_config(arch))):
+        assert dataclasses.asdict(ours) == dataclasses.asdict(ref)
