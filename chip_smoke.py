@@ -76,12 +76,19 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (a) the backward kernels of score_ce and flash_attention against their
    plain versions in bf16 and f32 (flash_attention: GQA 28/4 at hd 128 and
    MHA at hd 64, causal, windowed, q_offset > 0, kv_len < L, S not a tile
-   multiple, rows with nothing live, vicuna-7b's 4112 positions; score_ce:
-   gpt2-base's and vicuna-7b's (D, V), T not a tile multiple, masked tokens,
-   two and four vocabulary chunks), the forwards' log-sum-exp against the
-   plain one and their output unchanged by writing it, and both backward
-   kernels' times beside their plain versions, the library's backward and
-   their bounds; (b) ten Adam steps of a 2-layer f32 cut of gpt2-base, card
+   multiple, rows with nothing live, vicuna-7b's 4112 positions, and the
+   bf16 kernel's edges: S = L = 127, 128, 129, 257 around its 128-row KV
+   tile, a GQA group of 7, a window and kv_len ending inside a KV tile;
+   score_ce: gpt2-base's, vicuna-7b's and deepseek-v2's (D, V), T = 1, 64,
+   65, 128, 129, 136, 272, 273, 512 and 8192, masked tokens, two and four
+   vocabulary chunks), each twice: dk, dv, f32 dq and score_ce's gradient
+   must be bitwise equal between the two calls, and the largest bf16 dq
+   difference (atomic adds in a scheduling-dependent order) is printed; the
+   forwards' log-sum-exp against the plain one and their output unchanged
+   by writing it; both backward kernels' times beside their plain versions,
+   the library's backward and their bounds, and the kernels each bf16
+   backward launches, which must all be the port's own (no cuBLAS, cuDNN or
+   CUTLASS kernel); (b) ten Adam steps of a 2-layer f32 cut of gpt2-base, card
    against CPU from one state; (c) gpt2-base at full width (bf16, weights
    from --seed): PromptTuner.tune for 40 iterations at TuneConfig's
    defaults, then from the tuned prompt with a target above the first
@@ -594,12 +601,12 @@ def score_ce_rows(label: str, model_name: str, emb: torch.Tensor, Ts, gen,
     return rows
 
 
-def kernel_launches(label: str, fn, calls: int = 3) -> None:
+def kernel_launches(label: str, fn, calls: int = 3) -> list:
     """The kernels a call of ``fn`` launches, each with its launch shape and
     device time, from a profiler trace of ``calls`` calls written under
     build/, each kernel listed once (the profiler can drop a kernel's record,
     so one call alone may list too few). A fill kernel runs first inside the
-    trace and is left out of the listing."""
+    trace and is left out of the listing. Returns the kernels' names."""
     from torch.profiler import ProfilerActivity, profile
 
     fn()
@@ -623,6 +630,7 @@ def kernel_launches(label: str, fn, calls: int = 3) -> None:
             print(f"{label}: {e['dur']:.1f} us grid {a.get('grid')} block {a.get('block')} "
                   f"{a.get('registers per thread')} registers {a.get('shared memory')} B shared  "
                   f"{e['name'][:90]}")
+    return sorted({name for name, _ in seen})
 
 
 def library_yardstick(label: str, kernel, call) -> None:
@@ -1444,7 +1452,9 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
 # unless they say otherwise). GQA 28/4 at hd 128 and MHA at hd 64; a window
 # with kv_len < L; q_offset > 0; S not a multiple of the 64-row tile; rows
 # with no live column (window 4, kv_len 10: rows 13-19 see nothing); the
-# training shape of vicuna-7b (4112 positions, hd 128, MHA).
+# training shape of vicuna-7b (4112 positions, hd 128, MHA). Then the bf16
+# kernel's tile edges: S = L = 127, 128, 129 and 257 around its 128-row KV
+# tile, a GQA group of 7, and a window and kv_len that end inside a KV tile.
 FA_BWD_CASES = [
     (2, 28, 4, 513, 513, 128, {}),
     (2, 12, 12, 513, 513, 64, {}),
@@ -1456,13 +1466,27 @@ FA_BWD_CASES = [
     (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
     (8, 12, 12, 33, 33, 64, {}),                                 # gpt2-base tuning, batch 8
     (1, 32, 32, 4112, 4112, 128, {}),                            # vicuna-7b train_4k
+    (1, 4, 4, 127, 127, 128, {}),
+    (1, 4, 4, 128, 128, 128, {}),
+    (1, 4, 4, 129, 129, 64, {}),
+    (1, 4, 4, 257, 257, 128, {}),
+    (2, 14, 2, 129, 257, 128, {"q_offset": 128}),                 # GQA 7:1
+    (1, 7, 1, 300, 300, 64, {"window": 100, "kv_len": 200}),
+    (1, 4, 4, 129, 129, 128, {"causal": False, "kv_len": 100}),
 ]
 # score_ce's backward checks: T, D, V. gpt2-base's tuning batch (8 rows of
 # 17 tokens) and T one past a 128-row tile; vicuna-7b's at a 512-position
 # chunk of one sequence, and at 8192 rows, which the wrapper splits into two
-# vocabulary chunks in bf16 (four in f32), the last one ragged.
+# vocabulary chunks in bf16 (four in f32), the last one ragged. Then the
+# bf16 kernels' tile edges (T = 64, 65, 128, 129: the 64-row warpgroups and
+# 128-row tiles) and deepseek-v2's D = 5120, V = 102400 at T = 272.
 SCE_BWD_CASES = [(136, 768, 50257), (273, 768, 50257), (1, 768, 50257),
-                 (512, 4096, 32000), (8192, 4096, 32000)]
+                 (512, 4096, 32000), (8192, 4096, 32000), (64, 768, 50257), (65, 768, 50257),
+                 (128, 768, 50257), (129, 768, 50257), (272, 5120, 102400)]
+# The kernels each bf16 backward wrapper may launch (phase 9a): its own, so
+# no library kernel (cuBLAS, cuDNN, CUTLASS) runs inside it.
+PORT_BWD_KERNELS = {"flash_attention_bwd": ("fa_bwd_prep", "fa_bwd_bf16", "fa_bwd_dq_out"),
+                    "score_ce_bwd": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum")}
 
 
 def check_bwd(name: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
@@ -1501,7 +1525,7 @@ def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
                                               score_ce_plain)
 
     gen = torch.Generator(device=dev).manual_seed(seed + 9)
-    worst = {"flash_attention_bwd": 0.0, "score_ce_bwd": 0.0}
+    worst = {"flash_attention_bwd": 0.0, "score_ce_bwd": 0.0, "dq_run_to_run": 0.0}
     for dtype in (torch.bfloat16, torch.float32):
         for B, H, Hkv, S, L, hd, kw in FA_BWD_CASES:
             kw = {"causal": True, **kw}
@@ -1522,6 +1546,7 @@ def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
             if not (lse[~live] < -1e29).all():
                 raise AssertionError("flash_attention: a row with nothing live has a finite lse")
             grads = flash_attention_bwd(q, k, v, pout, dout, plse, **kw)
+            again = flash_attention_bwd(q, k, v, pout, dout, plse, **kw)
             torch.cuda.synchronize()
             refs = flash_attention_bwd_plain(q, k, v, pout, dout, plse, **kw)
             name = f"flash_attention_bwd {(B, H, Hkv, S, L, hd)} {kw} {dtype}"
@@ -1529,12 +1554,21 @@ def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
                     for g, a, b in zip(("dq", "dk", "dv"), grads, refs)]
             if not (grads[0].float().abs().sum(-1)[~live] == 0).all():
                 raise AssertionError(f"{name}: a row with nothing live got a gradient")
+            # bf16 sums dQ over KV tiles by atomic adds, in an order that
+            # changes from run to run; dK, dV and all of f32 must not move
+            dq_moved = (again[0].float() - grads[0].float()).abs().max().item()
+            if not (torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])
+                    and (dtype == torch.bfloat16 or dq_moved == 0)):
+                raise AssertionError(f"{name}: a gradient that should not depend on "
+                                     "scheduling changed between two calls")
             worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], *errs)
+            worst["dq_run_to_run"] = max(worst.get("dq_run_to_run", 0.0), dq_moved)
             print(f"[9a] flash_attention_bwd B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} {kw} "
                   f"{dtype}: max abs err dq/dk/dv {errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} "
                   f"(rtol {BWD_RTOL[dtype]}, atol {BWD_ATOL[dtype]} x max |plain|); lse "
-                  f"{lse_err:.3e}; {int((~live).sum())} rows with nothing live")
-            del q, k, v, dout, out, same, pout, grads, refs
+                  f"{lse_err:.3e}; {int((~live).sum())} rows with nothing live; dq between two "
+                  f"calls {dq_moved:.3e} (max |dq| {grads[0].float().abs().max().item():.3e})")
+            del q, k, v, dout, out, same, pout, grads, again, refs
         for T, D, V in SCE_BWD_CASES:
             h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
             e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(dtype)
@@ -1555,12 +1589,28 @@ def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
             err = check_bwd(name, dh, ref, dtype)
             if (dh[1::3] != 0).any():
                 raise AssertionError(f"{name}: a masked token got a gradient")
+            if not torch.equal(dh, score_ce_bwd(h, e, lab, plse, g)):
+                raise AssertionError(f"{name}: the gradient changed between two calls")
             worst["score_ce_bwd"] = max(worst["score_ce_bwd"], err)
             print(f"[9a] {name}: max abs err {err:.3e} (rtol {BWD_RTOL[dtype]}, atol "
                   f"{BWD_ATOL[dtype]} x max |plain|); lse {lse_err:.3e}")
             del h, e, dh, ref
         free_card()
-    return {"worst": worst, **backward_times(dev, gen)}
+    print(f"[9a] bf16 flash_attention_bwd: the largest dq difference between two calls on the "
+          f"same inputs, over every case: {worst['dq_run_to_run']:.3e} (dk, dv and score_ce_bwd: "
+          "bitwise equal)")
+    return {"worst": {k: worst[k] for k in ("flash_attention_bwd", "score_ce_bwd")},
+            "dq_run_to_run": worst["dq_run_to_run"], **backward_times(dev, gen)}
+
+
+def own_kernels(name: str, launched: list) -> None:
+    """Fails if the bf16 backward ``name`` launched any kernel that is not one
+    of its own (a library GEMM, for one)."""
+    foreign = [k for k in launched if not any(own in k for own in PORT_BWD_KERNELS[name])]
+    print(f"[9a] {name} (bf16) launched {len(launched)} kernels, all its own: {not foreign}")
+    if foreign:
+        raise AssertionError(f"[9a] {name}: kernels that are not its own (a library's?) ran "
+                             f"inside the bf16 backward: {foreign}")
 
 
 def backward_times(dev: torch.device, gen) -> dict:
@@ -1606,8 +1656,9 @@ def backward_times(dev: torch.device, gen) -> dict:
         print(f"[9a] flash_attention_bwd {row['shape']}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library (SDPA backward) {row['library_ms']:.4f} ms, "
               f"bound {b_ms:.4f} ms ({b_by})")
-        kernel_launches(f"[9a] flash_attention_bwd {label}, port",
-                        lambda: flash_attention_bwd(q, k, v, out, dout, lse))
+        own_kernels("flash_attention_bwd", kernel_launches(
+            f"[9a] flash_attention_bwd {label}, port",
+            lambda: flash_attention_bwd(q, k, v, out, dout, lse)))
         kernel_launches(f"[9a] flash_attention_bwd {label}, SDPA backward", lib)
         del q, k, v, dout, out, qg, kg, vg, sdpa_out
     for label, model, (T, D, V) in (
@@ -1632,7 +1683,8 @@ def backward_times(dev: torch.device, gen) -> dict:
         print(f"[9a] score_ce_bwd {row['shape']}: kernel {row['ms']:.4f} ms, plain "
               f"{row['plain_ms']:.4f} ms, library (cross_entropy backward) "
               f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
-        kernel_launches(f"[9a] score_ce_bwd {label}", lambda: score_ce_bwd(h, e, lab, lse, g))
+        own_kernels("score_ce_bwd", kernel_launches(f"[9a] score_ce_bwd {label}",
+                                                     lambda: score_ce_bwd(h, e, lab, lse, g)))
         del h, e, hg, nll
     free_card()
     return {"rows": rows}
@@ -1928,6 +1980,7 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
              "replaces": replaces[name],
              **({"counterpart": "none: the reference differentiates lpt_loss through XLA"}
                 if name.endswith("_bwd") else {}),
+             **({"dq_run_to_run": bwd["dq_run_to_run"]} if name == "flash_attention_bwd" else {}),
              "launches": sum(by_shape.values()),
              "launches_by_shape": by_shape, "max_abs_err": worst[name],
              **{k: rs[0][k] for k in keys}, "shapes": [{k: r[k] for k in keys} for r in rs[1:]]}

@@ -47,22 +47,22 @@
 // writes nothing), which the backward reads.
 //
 // Backward (score_ce_bwd_launch; no TPU counterpart: the reference takes
-// this gradient through XLA). For one vocabulary chunk it recomputes the
-// logits with the forward's main loop (bf16: one block per 128 × 256 tile,
-// the same TMA ring and wgmma products; f32: 64 × 64 tiles) and writes, as
-// its epilogue, G = g · (softmax − onehot(label)) from the saved
-// log-sum-exp, in hidden's element type as XLA rounds the logits' gradient
-// to the operands' type. The caller multiplies G by the chunk's emb rows
-// (a plain GEMM), so only a (T, chunk) slice of the (T, V) gradient is ever
-// in memory. Bound: the same products as the forward plus T × chunk
-// elements written and read back by that GEMM.
+// this gradient through XLA): dh = G · E with G = g · (softmax −
+// onehot(label)) from the saved log-sum-exp, one vocabulary chunk of G in
+// memory at a time. What bounds it: the logits again (2·T·V·D operations)
+// and G · E (as many) at thousands of rows; the embedding, read by both
+// products, at a short T. bf16 (the section "backward" below): the
+// forward's persistent main loop writes the chunk's G, a wgmma kernel of
+// this file adds G · E into f32 partials split over the vocabulary (a short
+// T has few output tiles), and a last pass sums them in a fixed order. f32:
+// the G pass on the CUDA cores, G · E left to the caller.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <dlfcn.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "hopper.cuh"
 #include "warp_tile.cuh"
 
 using namespace repro_torch;
@@ -156,114 +156,49 @@ constexpr int kTcThreads = 32 * kConsumerWarps + 128;  // + the producer warpgro
 constexpr int kStageA = kBM * kBK * 2;   // 16 KB
 constexpr int kStageB = kBN * kBK * 2;   // 32 KB
 constexpr int kTcSmem = kStages * (kStageA + kStageB) + 2 * kStages * 8 + 1024;   // + alignment
+// The backward's G pass: a ring of 3 stages and, per consumer warpgroup, its
+// 64 × 256 G tile in bf16 (four column blocks of 64 rows × 128 bytes) for
+// the TMA store.
+constexpr int kBwdStages = 3;
+constexpr int kGTile = 64 * kBN * 2;
+constexpr int kBwdSmem = kBwdStages * (kStageA + kStageB) + 2 * kGTile + 2 * kBwdStages * 8 + 1024;
 
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" :: "r"(smem_u32(bar)), "r"(count));
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
-               :: "r"(smem_u32(bar)), "r"(bytes) : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" :: "r"(smem_u32(bar)) : "memory");
-}
-
-// Waits until the phase of parity `parity` has completed. A wait that lasts
-// 2^34 clocks (about 10 s) traps, so a broken pipeline fails the launch
-// instead of hanging the card.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t a = smem_u32(bar);
-  uint32_t done;
-  long long start = 0;
-  do {
-    asm volatile("{\n.reg .pred p;\n"
-                 "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-                 "selp.u32 %0, 1, 0, p;\n}\n"
-                 : "=r"(done) : "r"(a), "r"(parity) : "memory");
-    if (!done) {
-      if (start == 0) start = clock64();
-      else if (clock64() - start > (1LL << 34)) __trap();
-    }
-  } while (!done);
-}
-
-// A box of the tensor map at (c0 = depth, c1 = row) into shared memory,
-// completing `bytes` of the barrier's transaction count.
-__device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                            int c0, int c1) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
-      "[%0], [%1, {%2, %3}], [%4];\n"
-      :: "r"(smem_u32(dst)), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1),
-         "r"(smem_u32(bar))
-      : "memory");
-}
-
-// wgmma descriptor of a K-major tile in the 128-byte swizzle: rows of 128
-// bytes, 8-row groups 1024 bytes apart (the tile's base 1024-aligned).
-// Adding 2 advances it by one k16 step (32 bytes).
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t smem_addr) {
-  return (uint64_t)((smem_addr & 0x3FFFF) >> 4) | ((uint64_t)1 << 16) |
-         ((uint64_t)(1024 >> 4) << 32) | ((uint64_t)1 << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" :: "n"(N) : "memory");
-}
-
-// d (64 × 256, f32, the m16n8 accumulator layout per n8 tile: d[4j + e] is
-// row 16·warp + g + 8·(e >> 1), column 8j + 2t + (e & 1)) = A · Bᵀ (+ d if
-// scale_d), A 64 × 16 and B 256 × 16 bf16, both K-major in shared memory.
-__device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_a,
-                                                 uint64_t desc_b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n256k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79,"
-      "%80, %81, %82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95,"
-      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111,"
-      "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
-      "}, %128, %129, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
-        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
-        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79]),
-        "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]), "+f"(d[85]), "+f"(d[86]), "+f"(d[87]),
-        "+f"(d[88]), "+f"(d[89]), "+f"(d[90]), "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]),
-        "+f"(d[96]), "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]), "+f"(d[103]),
-        "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
-        "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
-        "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
-      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
-}
-
-// Pins the accumulators after a wgmma wait: later reads may not move above it.
-__device__ __forceinline__ void fence_acc(float (&d)[128]) {
+// acc (this warpgroup's 64 rows × 256 columns) = the products of one tile
+// over the depth, from the ring (kRing stages)'s next n_k stages (none: acc
+// is left as it is): wgmma m64n256k16 with A K-major and B K-major (the logits: emb's rows are the columns) or
+// MN-major (G·E: emb's rows are the depth), one stage's four k16 steps per
+// commit, one stage's products in flight while the next is waited for; each
+// stage is released once the products after it are issued, the last once
+// they are done.
+template <bool kMnB, int kRing = kStages>
+__device__ __forceinline__ void tile_products(float (&acc)[128], uint32_t a_base, uint32_t b_base,
+                                              uint64_t* full, uint64_t* empty, int& stage,
+                                              uint32_t& phase, int n_k) {
+  const int lane = threadIdx.x & 31;
+  int prev = -1;
+  for (int kt = 0; kt < n_k; ++kt) {
+    mbar_wait(&full[stage], phase);
+    wgmma_fence();
+    const uint32_t a = a_base + stage * kStageA, b = b_base + stage * kStageB;
 #pragma unroll
-  for (int i = 0; i < 128; ++i) asm volatile("" : "+f"(d[i])::"memory");
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t db = kMnB ? desc_mn_major(b + kk * 2048, kStageB / 4)
+                               : desc_k_major(b + kk * 32);
+      wgmma_m64n256k16_ss<0, kMnB>(acc, desc_k_major(a + kk * 32), db, (kt > 0 || kk > 0) ? 1 : 0);
+    }
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products are done
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = stage;
+    if (++stage == kRing) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0 && prev >= 0) mbar_arrive(&empty[prev]);
 }
 
 // The consumer warpgroups' part of score_ce_bf16.
@@ -291,28 +226,7 @@ __device__ __forceinline__ void consume(uint8_t* sa, uint8_t* sb, uint64_t* full
   uint32_t phase = 0;
 
   for (int tile = tile_lo; tile < tile_hi; ++tile) {
-    int prev = -1;
-    for (int kt = 0; kt < n_k; ++kt) {
-      mbar_wait(&full[stage], phase);
-      wgmma_fence();
-      const uint64_t da = sw128_desc(a_base + stage * kStageA);
-      const uint64_t db = sw128_desc(b_base + stage * kStageB);
-#pragma unroll
-      for (int kk = 0; kk < kBK / 16; ++kk)
-        wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kt > 0 || kk > 0) ? 1 : 0);
-      wgmma_commit();
-      wgmma_wait<1>();   // the previous stage's products are done
-      if (prev >= 0) {
-        __syncwarp();
-        if (lane == 0) mbar_arrive(&empty[prev]);
-      }
-      prev = stage;
-      if (++stage == kStages) { stage = 0; phase ^= 1; }
-    }
-    wgmma_wait<0>();
-    fence_acc(acc);
-    __syncwarp();
-    if (lane == 0) mbar_arrive(&empty[prev]);
+    tile_products<false>(acc, a_base, b_base, full, empty, stage, phase, n_k);
     if (!live) continue;
 
     const int v0 = tile * kBN;
@@ -393,7 +307,7 @@ score_ce_bf16(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ 
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -451,103 +365,126 @@ __global__ void score_ce_combine(const float* __restrict__ part_m,
   }
 }
 
-// -- backward: dL/dlogits of one vocabulary chunk -----------------------------------
+// -- backward ------------------------------------------------------------------------
 //
-// G[r, c - c0] = g_r · (exp(logit[r, c] − lse_r) − [c == label_r]) for the
-// columns c of [c0, v_end), zero in the padding columns up to ldg. The
-// logits are recomputed by the forward's main loop; dh = G · E[c0:v_end] is
-// left to a matrix product outside the kernel, as the reference leaves it to
-// XLA. E is frozen, so no dE is formed.
+// dL/dhidden = G · E, G[r, c] = g_r · (exp(logit[r, c] − lse_r) − [c == label_r]),
+// one vocabulary chunk [c0, c0 + width) at a time, so that only a (T, chunk)
+// slice of G is ever in memory. E is frozen, so no dE is formed. bf16:
+//   1. score_ce_bwd_bf16 recomputes the chunk's logits with the forward's
+//      producer and main loop, each block walking its own range of
+//      256-column tiles with the ring kept full across them, and writes G in
+//      bf16 (XLA rounds the logits' gradient to the operands' type), zero in
+//      the padding columns up to ldg: each warpgroup stages its 64 × 256
+//      G tile in shared memory and one thread stores it by TMA, which
+//      overlaps the next tile's products. That buffer leaves room for a ring
+//      of 3 stages where the forward has 4. What bounds it beyond the
+//      products: the G epilogue (exponentials, G staged, two named barriers
+//      a tile) stalls both warpgroups, which share the ring's stages, while
+//      the tensor cores idle (tools/backward_variants.py, no_g_epilogue).
+//   2. score_ce_ge_bf16: dh's f32 partial of each vocabulary split, G (K-major
+//      A) times the chunk's E rows (MN-major B: E's rows are the depth), a
+//      128 × 256 output tile a block over a range of 64-row k tiles; the
+//      first chunk writes the partials, later chunks add to them (each element
+//      owned by one block, so the order is fixed).
+//   3. score_ce_ge_sum (after the last chunk) sums the splits' partials in
+//      split order and rounds to bf16.
+// So the whole sum is f32 and does not depend on scheduling, and no library
+// GEMM runs. The splits fill the card when T × D has few output tiles (a
+// short T: at T = 136, D = 768 six tiles, 22 splits); the partials stay
+// within a byte budget that the wrapper sets (kernels/score_ce.py).
 
-// The consumer warpgroups' part of score_ce_bwd_bf16: one 128 × 256 tile.
-__device__ __forceinline__ void consume_bwd(uint8_t* sa, uint8_t* sb, uint64_t* full,
-                                            uint64_t* empty, const int* __restrict__ labels,
+// The consumer warpgroups' part of score_ce_bwd_bf16: G of the tiles
+// [tile_lo, tile_hi) of the chunk, 128 rows a tile. Each warpgroup stores its
+// 64 × 256 G tile into shared memory (the 128-byte swizzle, no bank
+// conflicts) and one thread writes it out by TMA, which clips rows past T
+// and columns past ldg and overlaps the next tile's products.
+__device__ __forceinline__ void consume_bwd(uint8_t* sa, uint8_t* sb, uint8_t* sg, uint64_t* full,
+                                            uint64_t* empty, const CUtensorMap* tm_g,
+                                            const int* __restrict__ labels,
                                             const float* __restrict__ lse,
-                                            const float* __restrict__ gout,
-                                            __nv_bfloat16* __restrict__ G, int ldg, int n_tok,
-                                            int c0, int v_end, int row0, int v0, int n_k) {
+                                            const float* __restrict__ gout, int n_tok, int c0,
+                                            int v_end, int row0, int tile_lo, int tile_hi,
+                                            int n_k) {
   const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
   const int wg = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int tid = threadIdx.x & 127;
+  const bool live = row0 + 64 * wg < n_tok;   // as the forward: products, but no epilogue
   const int r0 = row0 + 64 * wg + 16 * (warp & 3) + g, r1 = r0 + 8;
   const uint32_t a_base = smem_u32(sa) + 64 * wg * kBK * 2, b_base = smem_u32(sb);
-  float acc[128];
-#pragma unroll
-  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
-  int stage = 0, prev = -1;
-  uint32_t phase = 0;
-  for (int kt = 0; kt < n_k; ++kt) {
-    mbar_wait(&full[stage], phase);
-    wgmma_fence();
-    const uint64_t da = sw128_desc(a_base + stage * kStageA);
-    const uint64_t db = sw128_desc(b_base + stage * kStageB);
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk)
-      wgmma_m64n256k16(acc, da + 2 * kk, db + 2 * kk, (kt > 0 || kk > 0) ? 1 : 0);
-    wgmma_commit();
-    wgmma_wait<1>();
-    if (prev >= 0) {
-      __syncwarp();
-      if (lane == 0) mbar_arrive(&empty[prev]);
-    }
-    prev = stage;
-    if (++stage == kStages) { stage = 0; phase ^= 1; }
-  }
-  wgmma_wait<0>();
-  fence_acc(acc);
-  __syncwarp();
-  if (lane == 0) mbar_arrive(&empty[prev]);
-
+  uint8_t* tile_g = sg + wg * kGTile;
+  const int q0 = 16 * (warp & 3) + g, q1 = q0 + 8;   // this lane's rows of the G tile
   const bool in0 = r0 < n_tok, in1 = r1 < n_tok;
   const float l0 = in0 ? lse[r0] * kLog2e : 0.f, l1 = in1 ? lse[r1] * kLog2e : 0.f;
   const float s0 = in0 ? gout[r0] : 0.f, s1 = in1 ? gout[r1] : 0.f;
   const int y0 = in0 ? labels[r0] : -1, y1 = in1 ? labels[r1] : -1;
+  float acc[128];
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int col = v0 + 8 * j + 2 * t, lc = col - c0;
-    if (lc >= ldg) continue;
-    float v[4];
+  for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+  int stage = 0;
+  uint32_t phase = 0;
+  for (int tile = tile_lo; tile < tile_hi; ++tile) {
+    tile_products<false, kBwdStages>(acc, a_base, b_base, full, empty, stage, phase, n_k);
+    if (!live) continue;
+    const int v0 = c0 + tile * kBN;
+    if (tid == 0) bulk_wait_read<0>();   // the last tile's store has read the buffer
+    bar_sync(1 + wg, 128);
 #pragma unroll
-    for (int e = 0; e < 2; ++e) {
-      const bool live = col + e < v_end;
-      v[e] = live ? s0 * (exp2_approx(fmaf(acc[4 * j + e], kLog2e, -l0)) -
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int col = v0 + 8 * j + 2 * t;
+      float v[4];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool in = col + e < v_end;   // zeros past the chunk, up to ldg
+        v[e] = in ? s0 * (exp2_approx(fmaf(acc[4 * j + e], kLog2e, -l0)) -
                           (col + e == y0 ? 1.f : 0.f)) : 0.f;
-      v[2 + e] = live ? s1 * (exp2_approx(fmaf(acc[4 * j + 2 + e], kLog2e, -l1)) -
+        v[2 + e] = in ? s1 * (exp2_approx(fmaf(acc[4 * j + 2 + e], kLog2e, -l1)) -
                               (col + e == y1 ? 1.f : 0.f)) : 0.f;
+      }
+      // column block j / 8; the 16-byte chunk j % 8 of row q at chunk (j % 8) ^ (q % 8)
+      uint8_t* blk = tile_g + (j >> 3) * (64 * 128) + ((((j & 7) ^ g)) << 4) + 4 * t;
+      *reinterpret_cast<uint32_t*>(blk + q0 * 128) = pack_bf16(v[0], v[1]);
+      *reinterpret_cast<uint32_t*>(blk + q1 * 128) = pack_bf16(v[2], v[3]);
     }
-    if (in0)
-      *reinterpret_cast<__nv_bfloat162*>(G + (long long)r0 * ldg + lc) =
-          __floats2bfloat162_rn(v[0], v[1]);
-    if (in1)
-      *reinterpret_cast<__nv_bfloat162*>(G + (long long)r1 * ldg + lc) =
-          __floats2bfloat162_rn(v[2], v[3]);
+    fence_proxy_async();
+    bar_sync(1 + wg, 128);
+    if (tid == 0) {
+#pragma unroll
+      for (int cb = 0; cb < kBN / 64; ++cb)
+        tma_store_2d(tm_g, tile_g + cb * (64 * 128), v0 - c0 + 64 * cb, row0 + 64 * wg);
+      bulk_commit();
+    }
   }
+  if (tid == 0) bulk_wait_all();
 }
 
-// One block per (128-row tile, 256-column vocabulary tile of the chunk): the
-// forward's producer and main loop over the depth, then the G epilogue.
+// Block (row tile, split), row tiles fastest as in the forward; split takes
+// the chunk's 256-column tiles [split·n/n_split, (split + 1)·n/n_split).
 __global__ void __launch_bounds__(kTcThreads, 1)
 score_ce_bwd_bf16(const __grid_constant__ CUtensorMap tm_h, const __grid_constant__ CUtensorMap tm_e,
-                  const int* __restrict__ labels, const float* __restrict__ lse,
-                  const float* __restrict__ gout, __nv_bfloat16* __restrict__ G, int ldg,
-                  int n_tok, int dim, int c0, int v_end, int row_tiles) {
+                  const __grid_constant__ CUtensorMap tm_g, const int* __restrict__ labels,
+                  const float* __restrict__ lse, const float* __restrict__ gout, int n_tok,
+                  int dim, int c0, int v_end, int n_split, int row_tiles) {
   extern __shared__ uint8_t smem_raw[];
   uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
   uint8_t* sa = smem;
-  uint8_t* sb = smem + kStages * kStageA;
-  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
-  uint64_t* empty = full + kStages;
+  uint8_t* sb = smem + kBwdStages * kStageA;
+  uint8_t* sg = sb + kBwdStages * kStageB;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sg + 2 * kGTile);
+  uint64_t* empty = full + kBwdStages;
 
   const int warp = threadIdx.x >> 5;
-  const int row0 = (blockIdx.x % row_tiles) * kBM;
-  const int v0 = c0 + (blockIdx.x / row_tiles) * kBN;
+  const int row0 = (blockIdx.x % row_tiles) * kBM, split = blockIdx.x / row_tiles;
+  const int n_vt = (v_end - c0 + kBN - 1) / kBN;
+  const int tile_lo = (int)((long long)split * n_vt / n_split);
+  const int tile_hi = (int)((long long)(split + 1) * n_vt / n_split);
   const int n_k = (dim + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
-    for (int s = 0; s < kStages; ++s) {
+    for (int s = 0; s < kBwdStages; ++s) {
       mbar_init(&full[s], 1);
       mbar_init(&empty[s], kConsumerWarps);
     }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_init_fence();
   }
   __syncthreads();
 
@@ -557,18 +494,119 @@ score_ce_bwd_bf16(const __grid_constant__ CUtensorMap tm_h, const __grid_constan
     if (threadIdx.x == 32 * kConsumerWarps) {
       int stage = 0;
       uint32_t phase = 0;
-      for (int kt = 0; kt < n_k; ++kt) {
+      for (int tile = tile_lo; tile < tile_hi; ++tile)
+        for (int kt = 0; kt < n_k; ++kt) {
+          mbar_wait(&empty[stage], phase ^ 1);
+          mbar_expect_tx(&full[stage], kStageA + kStageB);
+          tma_load_2d(sa + stage * kStageA, &tm_h, &full[stage], kt * kBK, row0);
+          tma_load_2d(sb + stage * kStageB, &tm_e, &full[stage], kt * kBK, c0 + tile * kBN);
+          if (++stage == kBwdStages) { stage = 0; phase ^= 1; }
+        }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    consume_bwd(sa, sb, sg, full, empty, &tm_g, labels, lse, gout, n_tok, c0, v_end, row0,
+                tile_lo, tile_hi, n_k);
+  }
+}
+
+// Block (row tile, column tile of D, split), row tiles fastest: the blocks
+// that run together share E's tiles through L2. A stage is G's 128 rows × 64
+// chunk columns (16 KB) and the 64 matching E rows × 256 columns of D, four
+// column blocks of 64 (32 KB); split takes the chunk's 64-row k tiles
+// [split·n_kt/n_split, (split + 1)·n_kt/n_split). part is (n_split, T, D) f32.
+__global__ void __launch_bounds__(kTcThreads, 1)
+score_ce_ge_bf16(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_e,
+                 float* __restrict__ part, int n_tok, int dim, int c0, int n_kt, int n_split,
+                 int row_tiles, int col_tiles, int first) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem;
+  uint8_t* sb = smem + kStages * kStageA;
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int rt = blockIdx.x % row_tiles, dt = (blockIdx.x / row_tiles) % col_tiles;
+  const int split = blockIdx.x / (row_tiles * col_tiles);
+  const int k_lo = (int)((long long)split * n_kt / n_split);
+  const int k_hi = (int)((long long)(split + 1) * n_kt / n_split);
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  if (wg == kConsumerWarps / 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = k_lo; kt < k_hi; ++kt) {
         mbar_wait(&empty[stage], phase ^ 1);
         mbar_expect_tx(&full[stage], kStageA + kStageB);
-        tma_load_2d(sa + stage * kStageA, &tm_h, &full[stage], kt * kBK, row0);
-        tma_load_2d(sb + stage * kStageB, &tm_e, &full[stage], kt * kBK, v0);
+        tma_load_2d(sa + stage * kStageA, &tm_g, &full[stage], kt * kBK, rt * kBM);
+#pragma unroll
+        for (int cb = 0; cb < kBN / 64; ++cb)
+          tma_load_2d(sb + stage * kStageB + cb * (kStageB / 4), &tm_e, &full[stage],
+                      dt * kBN + 64 * cb, c0 + kt * kBK);
         if (++stage == kStages) { stage = 0; phase ^= 1; }
       }
     }
   } else {
     asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
-    consume_bwd(sa, sb, full, empty, labels, lse, gout, G, ldg, n_tok, c0, v_end, row0, v0, n_k);
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    const int r0 = rt * kBM + 64 * wg + 16 * (warp & 3) + (lane >> 2), r1 = r0 + 8;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    int stage = 0;
+    uint32_t phase = 0;
+    tile_products<true>(acc, smem_u32(sa) + 64 * wg * kBK * 2, smem_u32(sb), full, empty, stage,
+                        phase, k_hi - k_lo);
+    float* p0 = part + ((long long)split * n_tok + r0) * dim;
+    float* p1 = part + ((long long)split * n_tok + r1) * dim;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int d = dt * kBN + 8 * j + 2 * t;
+      if (d >= dim) continue;
+      float2 a = make_float2(acc[4 * j], acc[4 * j + 1]);
+      float2 b = make_float2(acc[4 * j + 2], acc[4 * j + 3]);
+      if (r0 < n_tok) {
+        float2* q = reinterpret_cast<float2*>(p0 + d);
+        if (!first) { const float2 o = *q; a.x += o.x; a.y += o.y; }
+        *q = a;
+      }
+      if (r1 < n_tok) {
+        float2* q = reinterpret_cast<float2*>(p1 + d);
+        if (!first) { const float2 o = *q; b.x += o.x; b.y += o.y; }
+        *q = b;
+      }
+    }
   }
+}
+
+// dh (n elements, bf16) = Σ_s part[s] in split order, four elements a thread.
+__global__ void score_ce_ge_sum(const float* __restrict__ part, __nv_bfloat16* __restrict__ dh,
+                                long long n, int n_split) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (4 * i >= n) return;
+  float4 acc = reinterpret_cast<const float4*>(part)[i];
+  for (int s = 1; s < n_split; ++s) {
+    const float4 x = reinterpret_cast<const float4*>(part + s * n)[i];
+    acc.x += x.x;
+    acc.y += x.y;
+    acc.z += x.z;
+    acc.w += x.w;
+  }
+  __nv_bfloat162* out = reinterpret_cast<__nv_bfloat162*>(dh) + 2 * i;
+  out[0] = __floats2bfloat162_rn(acc.x, acc.y);
+  out[1] = __floats2bfloat162_rn(acc.z, acc.w);
 }
 
 // f32: 64 × 64 tiles on the CUDA cores, as the f32 forward.
@@ -613,36 +651,10 @@ score_ce_bwd_f32(const float* __restrict__ hidden, const float* __restrict__ emb
     }
 }
 
-// cuTensorMapEncodeTiled from the libcuda the process already loaded (no
-// link-time dependency on libcuda).
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (!fn) {
-    void* lib = dlopen("libcuda.so.1", RTLD_NOW | RTLD_NOLOAD);
-    if (!lib) lib = dlopen("libcuda.so.1", RTLD_NOW);
-    if (lib) fn = reinterpret_cast<EncodeTiled>(dlsym(lib, "cuTensorMapEncodeTiled"));
-  }
-  return fn;
-}
-
-// A (rows × dim) row-major bf16 matrix read in boxes of box_rows × 64 in the
-// 128-byte swizzle; out-of-bounds elements read as zero.
-bool bf16_map(CUtensorMap* map, const void* base, int rows, int dim, int box_rows) {
-  EncodeTiled encode = encode_tiled();
-  if (!encode) return false;
-  const cuuint64_t gdim[2] = {(cuuint64_t)dim, (cuuint64_t)rows};
-  const cuuint64_t gstride[1] = {(cuuint64_t)dim * 2};
-  const cuuint32_t box[2] = {(cuuint32_t)kBK, (cuuint32_t)box_rows};
-  const cuuint32_t estride[2] = {1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), gdim,
-                gstride, box, estride, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+// A (rows × cols) row-major bf16 matrix read in boxes of box_rows × 64.
+bool map_2d(CUtensorMap* map, const void* base, int rows, int cols, int box_rows) {
+  const long long dims[2] = {cols, rows}, strides[1] = {cols};
+  return bf16_map(map, base, 2, dims, strides, box_rows);
 }
 
 }  // namespace
@@ -662,7 +674,7 @@ extern "C" int score_ce_launch(const void* hidden, const void* emb, const void* 
   const int* lab = static_cast<const int*>(labels);
   if (is_bf16) {
     CUtensorMap tm_h, tm_e;
-    if (!bf16_map(&tm_h, hidden, n_tok, dim, kBM) || !bf16_map(&tm_e, emb, vocab, dim, kBN))
+    if (!map_2d(&tm_h, hidden, n_tok, dim, kBM) || !map_2d(&tm_e, emb, vocab, dim, kBN))
       return (int)cudaErrorInvalidValue;
     static bool attr = false;
     if (!attr) {
@@ -688,39 +700,59 @@ extern "C" int score_ce_launch(const void* hidden, const void* emb, const void* 
 }
 
 // The backward over one vocabulary chunk [c0, c0 + width): G (n_tok × ldg,
-// hidden's element type; ldg even and at least width) = g · (softmax −
-// onehot) on the chunk's columns, zero past V and in the padding. lse and
-// g are n_tok f32. Returns cudaGetLastError() after the launch (0 on
-// success), or cudaErrorInvalidValue if a tensor map cannot be made.
+// hidden's element type; ldg a multiple of 8 and at least width) = g ·
+// (softmax − onehot) on the chunk's columns, zero in the padding; lse and g
+// are n_tok f32. bf16 also adds G · E[c0, c0 + width) into part (ge_splits
+// × n_tok × dim f32; the first chunk writes it) and, after the last chunk,
+// writes dh (n_tok × dim bf16) = part summed over the splits; the G pass
+// splits the chunk's 256-column tiles g_splits ways. f32 leaves G · E to the
+// caller. Returns cudaGetLastError() after the launches (0 on success), or
+// cudaErrorInvalidValue if a tensor map cannot be made.
 extern "C" int score_ce_bwd_launch(const void* hidden, const void* emb, const void* labels,
                                    const void* lse, const void* gout, void* G, int ldg,
-                                   int n_tok, int dim, int vocab, int c0, int width,
+                                   void* part, void* dh, int n_tok, int dim, int vocab, int c0,
+                                   int width, int g_splits, int ge_splits, int first, int last,
                                    int is_bf16, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const int v_end = c0 + width < vocab ? c0 + width : vocab;
   const int* lab = static_cast<const int*>(labels);
   const float* lz = static_cast<const float*>(lse);
   const float* go = static_cast<const float*>(gout);
-  if (is_bf16) {
-    CUtensorMap tm_h, tm_e;
-    if (!bf16_map(&tm_h, hidden, n_tok, dim, kBM) || !bf16_map(&tm_e, emb, vocab, dim, kBN))
-      return (int)cudaErrorInvalidValue;
-    static bool attr = false;
-    if (!attr) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          score_ce_bwd_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
-      if (e != cudaSuccess) return (int)e;
-      attr = true;
-    }
-    const int row_tiles = (n_tok + kBM - 1) / kBM, col_tiles = (width + kBN - 1) / kBN;
-    score_ce_bwd_bf16<<<row_tiles * col_tiles, kTcThreads, kTcSmem, s>>>(
-        tm_h, tm_e, lab, lz, go, static_cast<__nv_bfloat16*>(G), ldg, n_tok, dim, c0, v_end,
-        row_tiles);
-  } else {
+  if (!is_bf16) {
     const dim3 grid((n_tok + kRows - 1) / kRows, (width + kCols - 1) / kCols);
     score_ce_bwd_f32<<<grid, kThreads, 0, s>>>(
         static_cast<const float*>(hidden), static_cast<const float*>(emb), lab, lz, go,
         static_cast<float*>(G), ldg, n_tok, dim, vocab, c0, v_end);
+    return (int)cudaGetLastError();
   }
+  CUtensorMap tm_h, tm_e, tm_g, tm_gs, tm_e64;
+  if (!map_2d(&tm_h, hidden, n_tok, dim, kBM) || !map_2d(&tm_e, emb, vocab, dim, kBN) ||
+      !map_2d(&tm_g, G, n_tok, ldg, kBM) || !map_2d(&tm_gs, G, n_tok, ldg, 64) ||
+      !map_2d(&tm_e64, emb, vocab, dim, kBK))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    cudaError_t e = cudaFuncSetAttribute(score_ce_bwd_bf16,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, kBwdSmem);
+    if (e == cudaSuccess)
+      e = cudaFuncSetAttribute(score_ce_ge_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               kTcSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  const int row_tiles = (n_tok + kBM - 1) / kBM;
+  score_ce_bwd_bf16<<<row_tiles * g_splits, kTcThreads, kBwdSmem, s>>>(
+      tm_h, tm_e, tm_gs, lab, lz, go, n_tok, dim, c0, v_end, g_splits, row_tiles);
+  cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return (int)err;
+  const int col_tiles = (dim + kBN - 1) / kBN, n_kt = (width + kBK - 1) / kBK;
+  float* pf = static_cast<float*>(part);
+  score_ce_ge_bf16<<<row_tiles * col_tiles * ge_splits, kTcThreads, kTcSmem, s>>>(
+      tm_g, tm_e64, pf, n_tok, dim, c0, n_kt, ge_splits, row_tiles, col_tiles, first);
+  err = cudaGetLastError();
+  if (err != cudaSuccess || !last) return (int)err;
+  const long long n = (long long)n_tok * dim;
+  score_ce_ge_sum<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(
+      pf, static_cast<__nv_bfloat16*>(dh), n, ge_splits);
   return (int)cudaGetLastError();
 }

@@ -198,6 +198,19 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 flash_attention.launches = 0
 
 
+# Query rows of one step of the bf16 backward (csrc/flash_attention_bwd.cu):
+# its f32 scratch is padded to a multiple of it.
+BWD_QUERY_TILE = 64
+
+
+def bwd_work_floats(B: int, H: int, S: int, hd: int, dtype: torch.dtype) -> int:
+    """f32 scratch of one backward call: bf16 keeps each padded query row's
+    log-sum-exp (log2 units), D and its f32 dQ sums; f32 keeps D."""
+    if dtype == torch.bfloat16:
+        return B * H * (-(-S // BWD_QUERY_TILE) * BWD_QUERY_TILE) * (2 + hd)
+    return B * H * S
+
+
 def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: torch.Tensor,
                         dout: torch.Tensor, lse: torch.Tensor, *, causal: bool = True,
                         window: int = 0, q_offset: int = 0, kv_len: Optional[int] = None
@@ -205,7 +218,9 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     """(dq, dk, dv) of ``flash_attention`` given the forward's inputs, its
     output, the output's gradient and the saved log-sum-exp: the kernels of
     ``csrc/flash_attention_bwd.cu`` for CUDA tensors, the plain version for
-    CPU tensors. dq has q's shape, dk and dv k's; all contiguous."""
+    CPU tensors. dq has q's shape, dk and dv k's; all contiguous. In bf16 dq
+    is summed over KV tiles by atomic adds, in an order that changes from
+    run to run (f32 rounding); dk, dv and the f32 path are deterministic."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     if _build.device_kind(q, k, v, out, dout, lse) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
@@ -222,12 +237,13 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     dv = torch.empty((B, Hkv, L, hd), dtype=v.dtype, device=q.device)
     if B == 0 or H == 0 or S == 0 or L == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, H, S), dtype=torch.float32, device=q.device)
+    work = torch.empty(bwd_work_floats(B, H, S, hd, q.dtype), dtype=torch.float32,
+                       device=q.device)
     kv = L if kv_len is None else int(kv_len)
     strides = [s for t in (q, k, v, out, dout, dq, dk, dv) for s in t.stride()[:3]]
     rc = _bwd_lib().flash_attention_bwd_launch(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), dout.data_ptr(),
-        lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
+        lse.data_ptr(), work.data_ptr(), dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
         *strides, B, H, Hkv, S, L, kv, int(q_offset), int(bool(causal)), int(window or 0),
         hd, int(q.dtype == torch.bfloat16), 1.0 / hd ** 0.5, _build.stream_ptr(q.device))
     if rc:

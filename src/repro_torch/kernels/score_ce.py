@@ -55,7 +55,8 @@ def _lib() -> ctypes.CDLL:
     fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
     fn.restype = ctypes.c_int
     fn = lib.score_ce_bwd_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 7 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 10 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -150,13 +151,35 @@ def bwd_chunk(n_tok: int, vocab: int, dtype: torch.dtype) -> int:
     return min(cols, -(-vocab // 256) * 256)
 
 
+# The bf16 G·E kernel's output tile (token rows, columns of D) and k tile
+# (vocabulary rows), and the bytes its f32 partials may take beyond one copy
+# of dh (csrc/score_ce.cu).
+GE_TILE = (128, 256)
+GE_K_TILE = 64
+GE_PART_BYTES = 1 << 28
+
+
+def ge_splits(n_tok: int, dim: int, width: int, sms: int) -> int:
+    """Vocabulary splits of the bf16 G·E product of one chunk of ``width``
+    columns: enough (row tile, column tile, split) blocks for one wave on
+    ``sms`` SMs, no more splits than the chunk has k tiles, and the f32
+    partials (splits × T × D) within GE_PART_BYTES unless one split alone is
+    larger. At least 1."""
+    tiles = -(-n_tok // GE_TILE[0]) * -(-dim // GE_TILE[1])
+    s = min(-(-width // GE_K_TILE), sms // tiles, GE_PART_BYTES // (4 * n_tok * dim))
+    return max(1, s)
+
+
 def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
                  lse: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
     """dL/dhidden (T, D) in hidden's dtype for dL/dnll = ``grad`` (T,), given
-    the forward's log-sum-exp: for CUDA tensors the kernel, one launch a
-    vocabulary chunk writing that chunk's G = grad · (softmax − onehot), each
-    G times the chunk's emb rows summed in f32; for CPU tensors
-    ``score_ce_bwd_plain``."""
+    the forward's log-sum-exp; for CPU tensors ``score_ce_bwd_plain``. For
+    CUDA tensors the kernel runs one launch a vocabulary chunk, each writing
+    that chunk's G = grad · (softmax − onehot) in hidden's dtype. bf16: the
+    kernel also adds each chunk's G·E into f32 partials split over the
+    vocabulary (``ge_splits``) and, after the last chunk, sums them in split
+    order, so the whole sum is f32 and deterministic. f32: G·E is a matrix
+    product summed in f32 here."""
     if _build.device_kind(hidden, emb, labels, lse, grad) == "cpu":
         return score_ce_bwd_plain(hidden, emb, labels, lse, grad)
     grad = grad.float().contiguous()
@@ -166,21 +189,31 @@ def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     T, D = hidden.shape
     V = emb.shape[0]
     chunk = bwd_chunk(T, V, hidden.dtype)
-    is_bf16 = int(hidden.dtype == torch.bfloat16)
-    dh = torch.zeros((T, D), dtype=torch.float32, device=hidden.device)
+    is_bf16 = hidden.dtype == torch.bfloat16
+    dev = hidden.device
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    G = torch.empty((T, chunk), dtype=hidden.dtype, device=dev)   # each chunk's G, rows ldg apart
+    if is_bf16:
+        n_ge = ge_splits(T, D, chunk, sms)
+        part = torch.empty((n_ge, T, D), dtype=torch.float32, device=dev)
+        dh = torch.empty((T, D), dtype=hidden.dtype, device=dev)
+    else:
+        n_ge, part = 0, None
+        dh = torch.zeros((T, D), dtype=torch.float32, device=dev)
     lib = _lib()
     for c0 in range(0, V, chunk):
         width = min(chunk, V - c0)
         ldg = -(-width // 8) * 8
-        G = torch.empty((T, ldg), dtype=hidden.dtype, device=hidden.device)
         rc = lib.score_ce_bwd_launch(
             hidden.data_ptr(), emb.data_ptr(), labels.data_ptr(), lse.data_ptr(),
-            grad.data_ptr(), G.data_ptr(), ldg, T, D, V, c0, width, is_bf16,
-            _build.stream_ptr(hidden.device))
+            grad.data_ptr(), G.data_ptr(), ldg, part.data_ptr() if is_bf16 else None,
+            dh.data_ptr(), T, D, V, c0, width, num_splits(T, width, sms, hidden.dtype), n_ge,
+            int(c0 == 0), int(c0 + chunk >= V), int(is_bf16), _build.stream_ptr(dev))
         if rc:
             raise RuntimeError(f"score_ce_bwd: kernel launch failed with CUDA error {rc}")
         score_ce_bwd.launches += 1
-        dh += G[:, :width] @ emb[c0:c0 + width]
+        if not is_bf16:
+            dh += G.view(-1)[:T * ldg].view(T, ldg)[:, :width] @ emb[c0:c0 + width]
     return dh.to(hidden.dtype)
 
 

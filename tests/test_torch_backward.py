@@ -179,22 +179,37 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# The bf16 kernels' tile edges: 64-row query tiles and 128-row KV tiles
+# (two warpgroups of 64), a GQA group of 7, a window and kv_len ending inside
+# a KV tile; score_ce's 64-row warpgroups and 128-row tiles.
+CUDA_FLASH_EDGES = [
+    (1, 4, 4, 127, 127, 128, {"causal": True}),
+    (1, 4, 4, 128, 128, 64, {"causal": True}),
+    (1, 4, 4, 129, 129, 128, {"causal": True}),
+    (1, 4, 4, 257, 257, 64, {"causal": True}),
+    (2, 14, 2, 129, 257, 128, {"causal": True, "q_offset": 128}),
+    (1, 7, 1, 300, 300, 64, {"causal": True, "window": 100, "kv_len": 200}),
+]
+CUDA_SCORE_T = (100, 1, 64, 65, 128, 129, 273)
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_backward_kernels_match_plain(cuda_device, dtype):
     """Both backward kernels against their plain versions, at the tolerances
-    of chip_smoke.py's phase 9a."""
+    of chip_smoke.py's phase 9a, also at the bf16 kernels' tile edges."""
     rtol, atol = (2e-5, 2e-5) if dtype == torch.float32 else (3e-2, 1e-2)
     gen = torch.Generator(device=cuda_device).manual_seed(0)
-    h = torch.randn(100, 64, generator=gen, device=cuda_device).to(dtype)
-    e = (torch.randn(509, 64, generator=gen, device=cuda_device) * 0.05).to(dtype)
-    lab = torch.randint(0, 509, (100,), generator=gen, device=cuda_device, dtype=torch.int32)
-    g = torch.rand(100, generator=gen, device=cuda_device)
-    _, lse = score_ce_plain(h, e, lab, return_lse=True)
-    ref = score_ce_bwd_plain(h, e, lab, lse, g).float()
-    torch.testing.assert_close(score_ce_bwd(h, e, lab, lse, g).float(), ref, rtol=rtol,
-                               atol=atol * ref.abs().max().item())
-    for B, H, Hkv, S, L, hd, kw in FLASH_BWD_CASES:
+    for T in CUDA_SCORE_T:
+        h = torch.randn(T, 64, generator=gen, device=cuda_device).to(dtype)
+        e = (torch.randn(509, 64, generator=gen, device=cuda_device) * 0.05).to(dtype)
+        lab = torch.randint(0, 509, (T,), generator=gen, device=cuda_device, dtype=torch.int32)
+        g = torch.rand(T, generator=gen, device=cuda_device)
+        _, lse = score_ce_plain(h, e, lab, return_lse=True)
+        ref = score_ce_bwd_plain(h, e, lab, lse, g).float()
+        torch.testing.assert_close(score_ce_bwd(h, e, lab, lse, g).float(), ref, rtol=rtol,
+                                   atol=atol * ref.abs().max().item())
+    for B, H, Hkv, S, L, hd, kw in FLASH_BWD_CASES + CUDA_FLASH_EDGES:
         q = torch.randn(B, H, S, hd, generator=gen, device=cuda_device).to(dtype)
         k = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
         v = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
