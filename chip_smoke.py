@@ -96,9 +96,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    (d) vicuna-7b at full width: 3 make_train_step steps at train_4k (4096
    tokens + 16 prompt positions) with the global batch cut from 256 to 2 (2
    microbatches), its peak memory and one step profiled, and the first
-   microbatch's prompt gradient in bf16 against f32 on a 4-layer cut. On
-   (c) and (d) every tuning kernel's launch count must be > 0 and no plain
-   version may run.
+   microbatch's prompt gradient in bf16 against f32 on a 4-layer cut; (e)
+   run inside phase 7, on its rwkv6-7b before that model is freed:
+   rwkv6_wkv_bwd against its plain version in bf16 and f32 (B*H = 1 and the
+   tuning shape 8 x 64, T = 1, 15, 16, 17, 33 and 529, with and without a
+   start state and dS_T, the model's decays, none and steep ones, rows not
+   16 bytes apart), each twice and bitwise equal, its kernels all its own,
+   and its times beside the plain version and the bound; ten Adam steps of a
+   2-layer f32 cut, card against CPU; PromptTuner.tune at full width for 10
+   iterations at TuneConfig's defaults, every iteration finite and
+   rwkv6_wkv_bwd launched 32 times a step, its peak memory and one step
+   profiled; (f) gpt2-base at full width (bf16, tied), after (c): score_ce's
+   embedding gradient dE against its plain version in bf16 and f32 (T = 1,
+   136, 512, 544 and 8192, masked tokens, two, four and seven vocabulary
+   chunks), bitwise repeatable, its kernels all the port's, its time beside
+   the plain version, the library's backward and the bound; five joint
+   pretraining steps of a 2-layer f32 cut, card against CPU; pretrain for
+   20 steps at the reference's batch 32 and prompt_len 8, its peak memory
+   and one step profiled; a checkpoint written and read back bitwise; the
+   Prompt Bank built from the result and one lookup. On (c), (d), (e) and
+   (f) every kernel of the path must be launched and no plain version may
+   run.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -195,6 +213,22 @@ BWD_ATOL = {torch.bfloat16: 1e-2, torch.float32: 2e-5}   # times max |plain grad
 # own running gradient size, which carries that rounding into the update).
 TUNE_F32_LOSS_RTOL = 1e-5
 TUNE_F32_PROMPT_TOL = 1e-4
+# The rwkv6_wkv backward against its plain version (phase 9e), relative to
+# the plain gradient's largest element: f32 sums in another order; bf16
+# rounds dr, dk and dv to bf16 once (dlogw, du and dS_0 stay f32).
+WKV_BWD_TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}
+# Five joint pretraining steps of the 2-layer f32 cut of gpt2-base, card
+# against CPU (phase 9f): the losses at the f32 scoring tolerance, every
+# weight and the prompt table after each step by relative norm at the
+# tuning tolerance (Adam moves every weight, each by its own scale). The
+# key biases are the exception: a shift of every key's score leaves the
+# softmax unchanged, so their gradient is exactly 0 and what each package
+# computes for it is rounding; Adam scales that to steps of about lr in
+# either sign. They are held only to differ by less than twice the sum of
+# the learning rates.
+PRETRAIN_F32_LOSS_RTOL = 1e-5
+PRETRAIN_F32_WEIGHT_TOL = 1e-4
+ZERO_GRADIENT_LEAVES = (".bk",)
 # vicuna-7b's first train_4k step (phase 9d): the prompt gradient in bf16
 # against the same step in f32 on a depth cut, by relative norm. bf16 rounds
 # every activation and every saved tensor of 4112 positions to 8 bits, a
@@ -601,35 +635,132 @@ def score_ce_rows(label: str, model_name: str, emb: torch.Tensor, Ts, gen,
     return rows
 
 
-def kernel_launches(label: str, fn, calls: int = 3) -> list:
-    """The kernels a call of ``fn`` launches, each with its launch shape and
-    device time, from a profiler trace of ``calls`` calls written under
-    build/, each kernel listed once (the profiler can drop a kernel's record,
-    so one call alone may list too few). A fill kernel runs first inside the
-    trace and is left out of the listing. Returns the kernels' names."""
-    from torch.profiler import ProfilerActivity, profile
+TRACED_CALL = "chip_smoke traced call "
+PROFILER_ATTEMPTS = 12
+SPACER_LAUNCHES = 256
 
-    fn()
-    torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        torch.zeros(1, device="cuda")
-        for _ in range(calls):
-            fn()
-        torch.cuda.synchronize()
+
+def traced_kernels(label: str, fn, calls: int, attempts: int = PROFILER_ATTEMPTS) -> dict:
+    """What one call of ``fn`` runs on the card, in launch order, from
+    profiler traces of ``calls`` calls each (written under build/).
+
+    The profiler keeps the runtime's record of every launch but can lose the
+    device's record of the kernel, a few or all of a trace's, more often the
+    longer the process has run (on the H100 machines, after two minutes
+    most traces of tools/profiler_record_loss.py hold none). So no single
+    trace is taken at its word. Each call runs in a named range; the launches
+    whose runtime records fall in it are numbered in order; the launch with
+    one number runs the same kernel in every call, so it is named by any call
+    and any trace that kept the record its correlation id points to. Traces
+    are taken until every kernel launch is named, at most ``attempts``.
+    Copies and sets are numbered the same way and kept where recorded.
+    The records lost are the first ones of a trace, or of a call after the
+    card fell idle: a count that grows as the process ages
+    (tools/profiler_record_loss.py). So each call comes after
+    SPACER_LAUNCHES launches of an empty kernel, outside its range, whose
+    records may be lost in its stead. The offset of the device's clock from
+    the launches' (the least gap from a launch to its kernel in the last
+    trace that kept any) is printed beside the count of traces, and the
+    launches left unnamed with their named neighbours.
+    Returns {"launches": [{"name", "cat", "grid", "block", "registers",
+    "shared", "us": [device times]} or None for each launch], "missing":
+    kernel launches left unnamed, "traces": traces taken}."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
     path = ROOT / "build" / "launches.trace.json"
     path.parent.mkdir(exist_ok=True)
-    prof.export_chrome_trace(str(path))
-    seen = set()
-    for e in json.loads(path.read_text())["traceEvents"]:
-        if e.get("cat") == "kernel" and "FillFunctor" not in e["name"]:
-            a = e["args"]
-            key = (e["name"], str(a.get("grid")))
-            if key in seen:
+    slots, offset_us = None, None
+    for attempt in range(1, attempts + 1):
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            for i in range(calls):
+                for _ in range(SPACER_LAUNCHES):
+                    torch.cuda._sleep(1)
+                with record_function(f"{TRACED_CALL}{i}"):
+                    fn()
+                    torch.cuda.synchronize()
+        prof.export_chrome_trace(str(path))
+        events = json.loads(path.read_text())["traceEvents"]
+        ranges = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                        if e.get("cat") == "user_annotation"
+                        and str(e.get("name")).startswith(TRACED_CALL))
+        runtime = sorted((e["ts"], e["args"]["correlation"], "LaunchKernel" in e["name"]
+                          or "LaunchCooperativeKernel" in e["name"], e["name"]) for e in events
+                         if e.get("cat") in ("cuda_runtime", "cuda_driver")
+                         and any(x in e["name"] for x in ("LaunchKernel",
+                                                          "LaunchCooperativeKernel",
+                                                          "Memcpy", "Memset")))
+        device = {e["args"]["correlation"]: e for e in events
+                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                  and "correlation" in e.get("args", {})}
+        gaps = [device[c]["ts"] - ts for ts, c, k, _ in runtime if k and c in device]
+        if gaps:
+            offset_us = min(gaps)
+        per_call = [[(c, k, api) for ts, c, k, api in runtime if lo <= ts <= hi]
+                    for lo, hi in ranges]
+        if len(per_call) != calls:
+            raise AssertionError(f"{label}: the trace holds {len(per_call)} of the {calls} "
+                                 "named call ranges")
+        counts = [len(p) for p in per_call]
+        if slots is None:
+            n = statistics.mode(counts)
+            kinds = next(p for p in per_call if len(p) == n)
+            slots = [None] * n
+        if any(c != len(slots) for c in counts):
+            print(f"{label}: calls launched {counts} times (first trace: {len(slots)}); "
+                  "only calls of that count are read")
+        for launches in per_call:
+            if len(launches) != len(slots):
                 continue
-            seen.add(key)
-            print(f"{label}: {e['dur']:.1f} us grid {a.get('grid')} block {a.get('block')} "
-                  f"{a.get('registers per thread')} registers {a.get('shared memory')} B shared  "
-                  f"{e['name'][:90]}")
+            for j, (corr, _, _) in enumerate(launches):
+                e = device.get(corr)
+                if e is None:
+                    continue
+                a = e["args"]
+                if slots[j] is None:
+                    slots[j] = {"name": e["name"], "cat": e["cat"], "grid": a.get("grid"),
+                                "block": a.get("block"),
+                                "registers": a.get("registers per thread"),
+                                "shared": a.get("shared memory"), "us": []}
+                elif slots[j]["name"] != e["name"]:
+                    raise AssertionError(f"{label}: launch {j} ran {slots[j]['name'][:60]} in "
+                                         f"one call and {e['name'][:60]} in another")
+                slots[j]["us"].append(e["dur"])
+        unnamed = [j for j, (s, (_, kernel, _)) in enumerate(zip(slots, kinds))
+                   if kernel and s is None]
+        missing = len(unnamed)
+        if not missing:
+            break
+    if attempt > 1 or missing:
+        offset = "none read" if offset_us is None else f"{offset_us / 1e3:+.3f} ms"
+        print(f"{label}: {len(slots)} launches a call, named from {attempt} traces "
+              f"(the profiler lost kernel records; device clock against launches: {offset}); "
+              f"{missing} kernel launches left unnamed")
+
+    def near(js):
+        return next((slots[k]["name"][:70] for k in js if slots[k] is not None), None)
+    for j in unnamed[:5]:
+        print(f"{label}: launch {j} ({kinds[j][2]}) unnamed, between {near(range(j - 1, -1, -1))} "
+              f"and {near(range(j + 1, len(slots)))}")
+    return {"launches": slots, "missing": missing, "traces": attempt}
+
+
+def kernel_launches(label: str, fn, calls: int = 3) -> list:
+    """The kernels a call of ``fn`` launches (traced_kernels), each listed
+    once with its launch shape and device time. Fails if a launch stays
+    unnamed. Returns the kernels' names."""
+    fn()
+    torch.cuda.synchronize()
+    traced = traced_kernels(label, fn, calls)
+    if traced["missing"]:
+        raise AssertionError(f"{label}: {traced['missing']} kernel launches stayed unnamed "
+                             f"after {traced['traces']} traces")
+    seen = set()
+    for s in traced["launches"]:
+        if s is None or s["cat"] != "kernel" or (s["name"], str(s["grid"])) in seen:
+            continue
+        seen.add((s["name"], str(s["grid"])))
+        print(f"{label}: {statistics.mean(s['us']):.1f} us grid {s['grid']} block {s['block']} "
+              f"{s['registers']} registers {s['shared']} B shared  {s['name'][:90]}")
     return sorted({name for name, _ in seen})
 
 
@@ -650,10 +781,9 @@ def library_yardstick(label: str, kernel, call) -> None:
 
 def profile_calls(label: str, fn, warm: int = 3, reps: int = 10, traced: int = 5) -> dict:
     """Where one call's time goes: host wall clock per call of ``fn`` against
-    the device time the profiler attributes to its kernels."""
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
+    the device time of the kernels, copies and sets it runs (traced_kernels).
+    Device busy and the idle share are "not measured" (None) where a kernel
+    launch stayed unnamed."""
     for _ in range(warm):
         fn()
     torch.cuda.synchronize()
@@ -662,20 +792,26 @@ def profile_calls(label: str, fn, warm: int = 3, reps: int = 10, traced: int = 5
         fn()
     torch.cuda.synchronize()
     wall_ms = (time.perf_counter() - t0) / reps * 1e3
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(traced):
-            fn()
-        torch.cuda.synchronize()
-    # device-side events only: each aten op's entry repeats its kernels' time
-    events = [e for e in prof.key_averages()
-              if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
-    dev_ms = sum(e.self_device_time_total for e in events) / traced / 1e3
-    kernels = sum(e.count for e in events) / traced
+    launches = traced_kernels(label, fn, traced)
+    seen = [s for s in launches["launches"] if s is not None]
+    kernels = sum(1 for s in seen if s["cat"] == "kernel")
+    if launches["missing"]:
+        print(f"{label}: host wall {wall_ms:.3f} ms, device busy not measured "
+              f"({launches['missing']} kernel launches unnamed), {len(launches['launches'])} "
+              "launches")
+        return {"wall_ms": wall_ms, "device_ms": None, "idle_share": None, "kernels": kernels}
+    unrecorded = len(launches["launches"]) - len(seen)
+    dev_ms = sum(statistics.mean(s["us"]) for s in seen) / 1e3
     print(f"{label}: host wall {wall_ms:.3f} ms, device busy {dev_ms:.3f} ms "
-          f"(idle share {1 - dev_ms / wall_ms:.3f}), {kernels:.0f} kernels")
-    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:6]:
-        print(f"{label}   {e.self_device_time_total / traced / 1e3:.4f} ms  "
-              f"x{e.count // traced:<4d} {e.key[:90]}")
+          f"(idle share {1 - dev_ms / wall_ms:.3f}), {kernels} kernels"
+          + (f" ({unrecorded} copies or sets unrecorded)" if unrecorded else ""))
+    by_name: dict = {}
+    for s in seen:
+        t = by_name.setdefault(s["name"], [0.0, 0])
+        t[0] += statistics.mean(s["us"])
+        t[1] += 1
+    for name, (us, n) in sorted(by_name.items(), key=lambda kv: -kv[1][0])[:6]:
+        print(f"{label}   {us / 1e3:.4f} ms  x{n:<4d} {name[:90]}")
     return {"wall_ms": wall_ms, "device_ms": dev_ms, "idle_share": 1 - dev_ms / wall_ms,
             "kernels": kernels}
 
@@ -1036,6 +1172,8 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
         profiles.append(profile_calls(f"[7] one rwkv6-7b evaluation at {positions} positions",
                                       lambda: score_fn(res.entry)))
 
+    tune = phase_rwkv_tune(model, seed)
+
     # decode against the forward pass: at full depth in f32 (the same
     # weights, widened) layer by layer; end to end on the 2-layer cut
     tokens = torch.randint(3, cfg.vocab_size, (2, 16), generator=gen, device=dev)
@@ -1067,7 +1205,179 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
     if failed:
         raise AssertionError(f"rwkv6 card scores disagree with the CPU f32 path for {failed}")
     return {"rows": rows, "profiles": profiles, "launches": launches, "by_shape": by_shape,
-            "score_rows": score_rows}
+            "score_rows": score_rows, "tune": tune}
+
+
+# The rwkv6_wkv backward's checks (phase 9e): B, H, T, decay, start state,
+# dS_T. B·H = 1 and the tuning shape (8 rows of 64 heads); T around the
+# kernel's 8-token checkpoint interval and the forward's 16-token sub-chunk,
+# and 529 (a 513-token lookup's tokens and 16 prompt positions). Decays as
+# phase 2 draws them, but "steep" (logw = -e^4, w about 1e-24) on every
+# other step only, so that the state and its gradient span many orders of
+# magnitude instead of being reset every step.
+WKV_BWD_CASES = [
+    (8, 64, 33, "drawn", False, False),         # the tuning path's call
+    (8, 64, 33, "drawn", True, True), (8, 64, 529, "drawn", True, True),
+    (1, 1, 1, "drawn", True, True), (1, 1, 15, "steep", False, True),
+    (1, 1, 16, "none", True, False), (1, 1, 17, "steep", True, True),
+    (1, 1, 33, "drawn", False, False), (8, 64, 1, "drawn", True, False),
+    (8, 64, 15, "steep", False, False), (8, 64, 16, "drawn", False, True),
+    (8, 64, 17, "none", True, True), (8, 64, 33, "steep", True, True),
+    (8, 64, 529, "steep", False, True),
+]
+WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "dS0")
+
+
+def check_rel_max(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float) -> float:
+    """max |out - ref| / max |ref|; raises past ``tol`` or on a non-finite out."""
+    out, ref = out.float(), ref.float()
+    err = (out - ref).abs().max().item() / max(ref.abs().max().item(), 1e-30)
+    if not torch.isfinite(out).all() or not err <= tol:
+        raise AssertionError(f"{name}: kernel disagrees with its plain version (max abs err "
+                             f"{err:.3e} of the largest element, tol {tol})")
+    return err
+
+
+def wkv_bwd_inputs(gen, dev, B: int, H: int, T: int, decay: str, with_state: bool,
+                   with_ds: bool, dtype, hd: int = 64, wide: bool = False) -> tuple:
+    """(r, k, v, logw, u, state0, dy, dS_T) of one backward call: r, k, v,
+    logw and dy as (B, T, H, hd) tensors seen as (B, H, T, hd), as the model
+    hands them (with ``wide``, views of rows 2 elements wider, so not 16
+    bytes apart)."""
+    def view(dt, fn=lambda x: x):
+        extra = 2 if wide else 0
+        x = fn(torch.randn(B, T, H * hd + extra, generator=gen, device=dev)).to(dt)
+        return x[..., :H * hd].view(B, T, H, hd).transpose(1, 2)
+    r, k, v = (view(dtype, lambda x: 0.5 * x) for _ in range(3))
+    drawn = lambda x: (-torch.exp(x - 1.5)).clamp_min(-12.0)
+    logw = view(torch.float32, torch.zeros_like if decay == "none" else drawn)
+    if decay == "steep":
+        logw[:, :, ::2] = -float(np.exp(4.0))
+    u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
+    s0 = 0.5 * torch.randn(B, H, hd, hd, generator=gen, device=dev) if with_state else None
+    dy = view(torch.float32)
+    ds = torch.randn(B, H, hd, hd, generator=gen, device=dev) if with_ds else None
+    return r, k, v, logw, u, s0, dy, ds
+
+
+def wkv_bwd_bound(B: int, H: int, T: int, hd: int, elt: int):
+    """Least time of one rwkv6_wkv_bwd call without the end states: r, k, v
+    (elt bytes), logw and dy (f32) read once, dr, dk, dv (elt) and dlogw
+    (f32) written once, u and du; 12·hd² f32 operations per token and head
+    (dr, dk, dv, dlogw, the G update and the forward state again) on the
+    CUDA cores."""
+    nbytes = B * H * T * hd * (6 * elt + 3 * 4) + 2 * H * hd * 4
+    return bound(12.0 * B * H * T * hd * hd, nbytes, PEAK_F32_FLOPS)
+
+
+def phase_rwkv_tune(model, seed: int) -> dict:
+    """9e on phase 7's rwkv6-7b (bf16, full width): (i) rwkv6_wkv_bwd against
+    its plain version, bitwise repeatable, launching its own kernels only,
+    and its times; (ii) ten Adam steps of a 2-layer f32 cut, card against
+    CPU; (iii) PromptTuner.tune at full width for 10 iterations."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.data import LoaderConfig, TaskLoader
+    from repro_torch.kernels.rwkv_wkv import rwkv6_wkv_bwd, rwkv6_wkv_bwd_plain
+    from repro_torch.models import prompt_from_arrays
+    from repro_torch.tuning import PromptTuner
+
+    dev = model.device
+    gen = torch.Generator(device=dev).manual_seed(seed + 19)
+    worst = 0.0
+    cases = [(c, False) for c in WKV_BWD_CASES] + [((2, 4, 37, "drawn", True, True), True)]
+    for dtype in (torch.bfloat16, torch.float32):
+        for (B, H, T, decay, with_state, with_ds), wide in cases:
+            args = wkv_bwd_inputs(gen, dev, B, H, T, decay, with_state, with_ds, dtype,
+                                  wide=wide)
+            out = rwkv6_wkv_bwd(*args)
+            again = rwkv6_wkv_bwd(*args)
+            torch.cuda.synchronize()
+            ref = rwkv6_wkv_bwd_plain(*args)
+            name = (f"rwkv6_wkv_bwd B*H={B * H} T={T} {decay} decay state0={with_state} "
+                    f"dS_T={with_ds}{' rows 2 elements wider' if wide else ''} {dtype}")
+            errs = {g: check_rel_max(f"{name} {g}", a, b, WKV_BWD_TOL[dtype])
+                    for g, a, b in zip(WKV_GRADS, out, ref) if a is not None}
+            if not all(a is None or torch.equal(a, c) for a, c in zip(out, again)):
+                raise AssertionError(f"{name}: the gradients changed between two calls")
+            if (out[5] is None) == with_state:
+                raise AssertionError(f"{name}: dS_0 given without a start state, or missing")
+            worst = max(worst, *errs.values())
+            print(f"[9e] {name}: max abs err / max |plain| "
+                  f"{', '.join(f'{g} {e:.2e}' for g, e in errs.items())} "
+                  f"(tol {WKV_BWD_TOL[dtype]}); bitwise equal between two calls")
+            del args, out, again, ref
+    rows = []
+    for T in (33, 529):                  # the tuning shape, and a 513-token lookup's length
+        r, k, v, logw, u, _, dy, _ = wkv_bwd_inputs(gen, dev, 8, 64, T, "drawn", False, False,
+                                                    torch.bfloat16)
+        call = lambda: rwkv6_wkv_bwd(r, k, v, logw, u, None, dy, None, need_du=False)
+        b_ms, b_by = wkv_bwd_bound(8, 64, T, 64, 2)
+        rows.append({"shape": f"B=8 H=64 T={T} hd=64 bf16 r/k/v, zero start state, no dS_T",
+                     "ms": time_ms(call),
+                     "plain_ms": time_ms(lambda: rwkv6_wkv_bwd_plain(r, k, v, logw, u, None, dy),
+                                         reps=3, warmup=1),
+                     "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
+        print(f"[9e] rwkv6_wkv_bwd {rows[-1]['shape']}: kernel {rows[-1]['ms']:.4f} ms, plain "
+              f"{rows[-1]['plain_ms']:.4f} ms, library: none (no single PyTorch call computes "
+              f"WKV's backward), bound {b_ms:.4f} ms ({b_by})")
+        own_kernels("rwkv6_wkv_bwd", kernel_launches(f"[9e] rwkv6_wkv_bwd T={T}", call))
+        del r, k, v, logw, dy
+    free_card()
+
+    # (ii) ten Adam steps of the 2-layer f32 cut, card against CPU
+    tune_cfg = TuneConfig()                            # P=16, batch 8, lr 0.3, eval 10, 16 samples
+    task = synthetic_task()
+    d = model.cfg.d_model
+    prompt0 = np.random.default_rng(seed).normal(
+        0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d)).astype(np.float32)
+    cut = tune_cut_card_vs_cpu("[9e]", model, task, tune_cfg, prompt0, seed, chaotic=True)
+
+    # (iii) PromptTuner.tune at full width, 10 iterations at TuneConfig's defaults
+    tuner = PromptTuner(model, tune_cfg)
+    losses, step = [], tuner.step
+
+    def recording_step(*a):                            # every iteration's loss, read at the end
+        out = step(*a)
+        losses.append(out[2])
+        return out
+
+    tuner.step = recording_step
+    loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+    torch.cuda.reset_peak_memory_stats(dev)
+    iters = 10
+    t0 = time.perf_counter()
+    res, launches = main_path(f"[9e] tune, {iters} iterations", lambda: tuner.tune(
+        loader, prompt_from_arrays({"soft_prompt": prompt0}, dev), max_iters=iters), RWKV_TUNING)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    tuner.step = step
+    losses = torch.stack(losses).tolist()
+    evals = [(it, round(l, 6), round(e, 6)) for it, l, e in res["history"]]
+    layers = model.cfg.num_layers
+    print(f"[9e] {model.cfg.name} tune, {iters} iterations in {wall:.3f} s ({wall / iters * 1e3:.3f} "
+          f"ms an iteration with its share of {len(evals)} evaluation); losses "
+          f"{[round(l, 6) for l in losses]}; history {evals}; max_memory_allocated {peak:.2f} GiB")
+    if (res["iters"] != iters or len(losses) != iters or not np.isfinite(losses).all()
+            or not torch.isfinite(res["prompt"]["soft_prompt"]).all()):
+        raise AssertionError(f"[9e] tune did not run {iters} finite iterations: {losses}")
+    if launches["rwkv6_wkv_bwd"] != layers * iters:
+        raise AssertionError(f"[9e] rwkv6_wkv_bwd launched {launches['rwkv6_wkv_bwd']} times in "
+                             f"{iters} steps, not {layers} a step")
+    pp = prompt_from_arrays({"soft_prompt": prompt0}, dev)
+    holder = {"pp": pp, "opt": tuner.init_opt(pp)}
+    batch = next(loader)
+    positions = batch["tokens"].size + tune_cfg.batch_size * tune_cfg.prompt_len
+
+    def one_step():
+        holder["pp"], holder["opt"], _ = tuner.step(holder["pp"], holder["opt"], batch)
+
+    main_path("[9e] one step", one_step, RWKV_TUNING)
+    profile = step_profile(f"[9e] one {model.cfg.name} PromptTuner.step, batch 8 x 33 positions",
+                           one_step, positions)
+    del tuner, holder
+    free_card()
+    return {"rows": rows, "worst": worst, "launches": launches, "iters": iters,
+            "peak_gib": peak, "profile": profile, "cut": cut}
 
 
 # -- phase 8 --------------------------------------------------------------------
@@ -1486,7 +1796,10 @@ SCE_BWD_CASES = [(136, 768, 50257), (273, 768, 50257), (1, 768, 50257),
 # The kernels each bf16 backward wrapper may launch (phase 9a): its own, so
 # no library kernel (cuBLAS, cuDNN, CUTLASS) runs inside it.
 PORT_BWD_KERNELS = {"flash_attention_bwd": ("fa_bwd_prep", "fa_bwd_bf16", "fa_bwd_dq_out"),
-                    "score_ce_bwd": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum")}
+                    "score_ce_bwd": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum"),
+                    "score_ce_de": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum",
+                                    "score_ce_de_bf16"),
+                    "rwkv6_wkv_bwd": ("rwkv6_wkv_bwd_kernel", "rwkv6_wkv_bwd_du")}
 
 
 def check_bwd(name: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> float:
@@ -1607,7 +1920,9 @@ def own_kernels(name: str, launched: list) -> None:
     """Fails if the bf16 backward ``name`` launched any kernel that is not one
     of its own (a library GEMM, for one)."""
     foreign = [k for k in launched if not any(own in k for own in PORT_BWD_KERNELS[name])]
-    print(f"[9a] {name} (bf16) launched {len(launched)} kernels, all its own: {not foreign}")
+    print(f"[9] {name} (bf16) launched {len(launched)} kernels, all its own: {not foreign}")
+    if not launched:
+        raise AssertionError(f"[9] {name}: the profiler listed no kernel for it")
     if foreign:
         raise AssertionError(f"[9a] {name}: kernels that are not its own (a library's?) ran "
                              f"inside the bf16 backward: {foreign}")
@@ -1692,14 +2007,16 @@ def backward_times(dev: torch.device, gen) -> dict:
 
 @contextlib.contextmanager
 def plain_calls(calls: dict):
-    """Counts the calls of the plain versions of score_ce, flash_attention and
-    their backwards inside the block, into ``calls``: on the card's main path
-    every one must stay 0."""
+    """Counts the calls of the plain versions of score_ce, flash_attention,
+    rwkv6_wkv and their backwards inside the block, into ``calls``: on the
+    card's main path every one must stay 0."""
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import rwkv_wkv as rw_mod
     from repro_torch.kernels import score_ce as sc_mod
 
     names = [(sc_mod, "score_ce_plain"), (sc_mod, "score_ce_bwd_plain"),
-             (fa_mod, "flash_attention_plain"), (fa_mod, "flash_attention_bwd_plain")]
+             (fa_mod, "flash_attention_plain"), (fa_mod, "flash_attention_bwd_plain"),
+             (rw_mod, "rwkv6_wkv_plain"), (rw_mod, "rwkv6_wkv_bwd_plain")]
     saved = {name: getattr(mod, name) for mod, name in names}
 
     def counting(name):
@@ -1718,19 +2035,28 @@ def plain_calls(calls: dict):
             setattr(mod, name, saved[name])
 
 
-def tuning_kernels() -> dict:
+def training_kernels() -> dict:
+    """Every kernel a training path may launch, by name."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    from repro_torch.kernels.score_ce import score_ce, score_ce_bwd
+    from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_bwd
+    from repro_torch.kernels.score_ce import score_ce, score_ce_bwd, score_ce_de
 
-    return {"score_ce": score_ce, "score_ce_bwd": score_ce_bwd,
-            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd}
+    return {"score_ce": score_ce, "score_ce_bwd": score_ce_bwd, "score_ce_de": score_ce_de,
+            "flash_attention": flash_attention, "flash_attention_bwd": flash_attention_bwd,
+            "rwkv6_wkv": rwkv6_wkv, "rwkv6_wkv_bwd": rwkv6_wkv_bwd}
 
 
-def main_path(label: str, fn):
-    """Runs ``fn`` as a main path: every tuning kernel's count set to 0 just
-    before, read just after; each must be > 0 and no plain version called.
-    Returns (fn's result, {kernel: launches})."""
-    kernels, calls = tuning_kernels(), {}
+# the kernels each training path must launch
+ATTENTION_TUNING = ("score_ce", "score_ce_bwd", "flash_attention", "flash_attention_bwd")
+RWKV_TUNING = ("score_ce", "score_ce_bwd", "rwkv6_wkv", "rwkv6_wkv_bwd")
+PRETRAINING = ATTENTION_TUNING + ("score_ce_de",)
+
+
+def main_path(label: str, fn, names=ATTENTION_TUNING):
+    """Runs ``fn`` as a main path: the count of every kernel in ``names``
+    set to 0 just before, read just after; each must be > 0 and no plain
+    version called. Returns (fn's result, {kernel: launches})."""
+    kernels, calls = {n: k for n, k in training_kernels().items() if n in names}, {}
     for k in kernels.values():
         k.launches = 0
     with plain_calls(calls):
@@ -1739,23 +2065,103 @@ def main_path(label: str, fn):
     launches = {name: k.launches for name, k in kernels.items()}
     print(f"{label}: kernel launches {launches}; plain-version calls {calls}")
     if any(n <= 0 for n in launches.values()) or any(calls.values()):
-        raise AssertionError(f"{label}: a tuning kernel was never launched, or a plain "
+        raise AssertionError(f"{label}: a training kernel was never launched, or a plain "
                              f"version ran on the card: {launches} {calls}")
     return out, launches
 
 
 def step_profile(label: str, fn, positions: int, warm: int = 2, reps: int = 5,
-                 traced: int = 2) -> None:
+                 traced: int = 2) -> dict:
     """Prints per step: latency (host wall, synchronised), tokens/s over the
     step's positions, device busy, idle share and kernels (profile_calls)."""
-    wall_ms = profile_calls(label, fn, warm=warm, reps=reps, traced=traced)["wall_ms"]
+    prof = profile_calls(label, fn, warm=warm, reps=reps, traced=traced)
+    wall_ms = prof["wall_ms"]
     print(f"{label}: latency {wall_ms:.3f} ms a step, {positions / (wall_ms / 1e3):.0f} "
           f"positions/s ({positions} positions a step)")
+    return prof
 
 
 def synthetic_task(input_len: int = 8, target_len: int = 8):
     from repro_torch.data import make_tasks
     return make_tasks(vocab=32, partitions=4, input_len=input_len, target_len=target_len)[5]
+
+
+def tune_cut_card_vs_cpu(label: str, model, task, tune_cfg, prompt0: np.ndarray,
+                         seed: int, steps: int = 10, chaotic: bool = False) -> dict:
+    """``steps`` Adam steps of ``model``'s 2-layer f32 cut from one prompt on
+    one task's batches, on the card and on the CPU. Each step is held from
+    the CPU trajectory's state (the card steps from the CPU's prompt and
+    optimizer state): loss and prompt at TUNE_F32_LOSS_RTOL and
+    TUNE_F32_PROMPT_TOL. The card's own trajectory is held to the CPU's at
+    the same tolerances, unless ``chaotic``: then it is printed beside a
+    CPU trajectory from a prompt perturbed by 1e-7 (relative), which shows
+    how far f32 rounding alone carries over these steps."""
+    from repro_torch.data import LoaderConfig, TaskLoader
+    from repro_torch.models import prompt_from_arrays
+    from repro_torch.train import OptState
+    from repro_torch.tuning import PromptTuner
+
+    card, cpu = depth_cut(cut_state(model, 2), model.device)
+    loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+    batches = [next(loader) for _ in range(steps)]
+
+    def trajectory(m, p0):
+        t = PromptTuner(m, tune_cfg)
+        pp = prompt_from_arrays({"soft_prompt": p0}, m.device)
+        st, out = t.init_opt(pp), []
+        for b in batches:
+            pp, st, loss = t.step(pp, st, b)
+            out.append((float(loss), pp, st))
+        return out
+
+    def on(state, dev):
+        pp, st = state
+        return ({k: v.detach().to(dev).requires_grad_(True) for k, v in pp.items()},
+                OptState(st.step.to(dev), {k: v.to(dev) for k, v in st.mu.items()},
+                         {k: v.to(dev) for k, v in st.nu.items()}))
+
+    ref = trajectory(cpu, prompt0)
+    own = trajectory(card, prompt0)
+    tuner = PromptTuner(card, tune_cfg)
+    start = prompt_from_arrays({"soft_prompt": prompt0}, "cpu")
+    state = (start, PromptTuner(cpu, tune_cfg).init_opt(start))
+    prompt = lambda pp: pp["soft_prompt"].detach().cpu()
+    worst = {"loss": 0.0, "prompt": 0.0, "own_loss": 0.0, "own_prompt": 0.0}
+    for i, b in enumerate(batches):
+        pp, _, loss = tuner.step(*on(state, card.device), b)
+        lr_, pr, st = ref[i]
+        rel_l, rel_p = abs(float(loss) - lr_) / abs(lr_), rel_gap(prompt(pp), prompt(pr))
+        own_l, own_p = abs(own[i][0] - lr_) / abs(lr_), rel_gap(prompt(own[i][1]), prompt(pr))
+        for k, x in (("loss", rel_l), ("prompt", rel_p), ("own_loss", own_l), ("own_prompt", own_p)):
+            worst[k] = max(worst[k], x)
+        print(f"{label} step {i + 1} from the CPU's state: loss card {float(loss):.6f} cpu {lr_:.6f} "
+              f"(rel {rel_l:.2e}), prompt rel {rel_p:.2e}; the card's own trajectory: loss rel "
+              f"{own_l:.2e}, prompt rel {own_p:.2e} (||prompt|| {pr['soft_prompt'].norm().item():.3f})")
+        state = (pr, st)
+    held = [("loss", TUNE_F32_LOSS_RTOL), ("prompt", TUNE_F32_PROMPT_TOL)]
+    if not chaotic:
+        held += [("own_loss", TUNE_F32_LOSS_RTOL), ("own_prompt", TUNE_F32_PROMPT_TOL)]
+    else:
+        noise = np.random.default_rng(seed + 1).standard_normal(prompt0.shape)
+        witness = trajectory(cpu, (prompt0 * (1 + 1e-7 * noise)).astype(np.float32))
+        gaps = [rel_gap(prompt(w[1]), prompt(r[1])) for w, r in zip(witness, ref)]
+        worst["witness_prompt"] = gaps[-1]
+        print(f"{label} witness: the CPU from a prompt perturbed by 1e-7 against the CPU, prompt rel "
+              f"after each step {[f'{g:.2e}' for g in gaps]} (read, not held: Adam at lr "
+              f"{tune_cfg.lr} on this random cut carries f32 rounding that far)")
+    failed = [f"{k} {worst[k]:.2e} (tol {tol})" for k, tol in held if not worst[k] <= tol]
+    if failed:
+        raise AssertionError(f"{label} the 2-layer f32 cut's tuning on the card left the CPU's: "
+                             f"{failed}")
+    print(f"{label} 2-layer f32 cut of {model.cfg.name}, {steps} Adam steps (lr {tune_cfg.lr}, "
+          f"batch {tune_cfg.batch_size}, P={tune_cfg.prompt_len}), card against CPU: each step from "
+          f"the CPU's state worst loss rel {worst['loss']:.2e} (tol {TUNE_F32_LOSS_RTOL}), prompt "
+          f"rel {worst['prompt']:.2e} (tol {TUNE_F32_PROMPT_TOL}); the card's own trajectory worst "
+          f"loss rel {worst['own_loss']:.2e}, prompt rel {worst['own_prompt']:.2e} "
+          f"({'read beside the witness' if chaotic else 'held at the same tolerances'})")
+    del card, cpu
+    free_card()
+    return worst
 
 
 def phase_tune_gpt2(dev: torch.device, seed: int) -> dict:
@@ -1776,35 +2182,7 @@ def phase_tune_gpt2(dev: torch.device, seed: int) -> dict:
     prompt0 = rng.normal(0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d)).astype(np.float32)
 
     # 9b: ten Adam steps of the 2-layer f32 cut, card against CPU, from one state
-    card, cpu = depth_cut(cut_state(model, 2), dev)
-    loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
-    steps = [next(loader) for _ in range(10)]
-    tuned = {}
-    for name, m in (("card", card), ("cpu", cpu)):
-        t = PromptTuner(m, tune_cfg)
-        pp = prompt_from_arrays({"soft_prompt": prompt0}, m.device)
-        st = t.init_opt(pp)
-        traj = []
-        for b in steps:
-            pp, st, loss = t.step(pp, st, b)
-            traj.append((float(loss), pp["soft_prompt"].detach().cpu().clone()))
-        tuned[name] = traj
-    worst_loss = worst_prompt = 0.0
-    for i, ((lc, pc), (lr_, pr)) in enumerate(zip(tuned["card"], tuned["cpu"])):
-        rel_l, rel_p = abs(lc - lr_) / abs(lr_), rel_gap(pc, pr)
-        worst_loss, worst_prompt = max(worst_loss, rel_l), max(worst_prompt, rel_p)
-        print(f"[9b] step {i + 1}: loss card {lc:.6f} cpu {lr_:.6f} (rel {rel_l:.2e}); "
-              f"prompt ||card - cpu|| / ||cpu|| {rel_p:.2e}")
-    if not (worst_loss <= TUNE_F32_LOSS_RTOL and worst_prompt <= TUNE_F32_PROMPT_TOL):
-        raise AssertionError(f"[9b] the 2-layer f32 cut's tuning on the card left the CPU's: "
-                             f"loss {worst_loss:.2e} (tol {TUNE_F32_LOSS_RTOL}), prompt "
-                             f"{worst_prompt:.2e} (tol {TUNE_F32_PROMPT_TOL})")
-    print(f"[9b] 2-layer f32 cut of {cfg.name}, 10 Adam steps (lr {tune_cfg.lr}, batch "
-          f"{tune_cfg.batch_size}, P={tune_cfg.prompt_len}), card against CPU: worst loss rel "
-          f"{worst_loss:.2e} (tol {TUNE_F32_LOSS_RTOL}), worst prompt rel {worst_prompt:.2e} "
-          f"(tol {TUNE_F32_PROMPT_TOL})")
-    del card, cpu
-    free_card()
+    tune_cut_card_vs_cpu("[9b]", model, task, tune_cfg, prompt0, seed)
 
     # 9c: PromptTuner.tune at full width, 40 iterations, then the ITA = 0 exit
     tuner = PromptTuner(model, tune_cfg)
@@ -1848,6 +2226,214 @@ def phase_tune_gpt2(dev: torch.device, seed: int) -> dict:
     del model, tuner
     free_card()
     return {"launches": launches}
+
+
+# dE's checks (phase 9f): T, D, V. gpt2-base at T = 1, its tuning batch
+# (136), 512 rows, its pretraining batch (32 rows of 17 tokens) and 8192 rows
+# (four vocabulary chunks in bf16, seven in f32); vicuna-7b's D and V at 8192
+# rows (two chunks in bf16, four in f32).
+DE_CASES = [(1, 768, 50257), (136, 768, 50257), (512, 768, 50257), (544, 768, 50257),
+            (8192, 768, 50257), (8192, 4096, 32000)]
+
+
+def sce_de_bound(T: int, D: int, V: int, elt: int):
+    """Least time of one score_ce_bwd call with dE: hidden and emb read once,
+    dh and dE written once, the labels, lse and gradient (4 bytes a token
+    each); the logits again, dh and dE: 6·T·V·D operations."""
+    nbytes = 2 * (T * D + V * D) * elt + 3 * T * 4
+    return bound(6.0 * T * V * D, nbytes, PEAK_BF16_FLOPS)
+
+
+def phase_pretrain(dev: torch.device, seed: int) -> dict:
+    """9f on gpt2-base (full width, bf16, tied): (i) dE against its plain
+    version, bitwise repeatable, launching the port's kernels only, and its
+    times; (ii) five joint steps of a 2-layer f32 cut, card against CPU;
+    (iii) pretrain for 20 steps; (iv) a checkpoint written and read back
+    bitwise; (v) the Prompt Bank built from the result and one lookup."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import build_bank_from_pretrain, make_score_fn
+    from repro_torch.data import LoaderConfig, TaskLoader, batch_to_torch, make_tasks
+    from repro_torch.kernels.score_ce import (score_ce, score_ce_bwd, score_ce_bwd_plain,
+                                              score_ce_plain)
+    from repro_torch.models import Model, params_from_jax, params_to_jax
+    from repro_torch.train import load_checkpoint, make_pretrain_step, pretrain, save_checkpoint
+
+    gen = torch.Generator(device=dev).manual_seed(seed + 23)
+    worst = 0.0
+    for dtype in (torch.bfloat16, torch.float32):
+        for T, D, V in DE_CASES:
+            h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
+            e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(dtype)
+            lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
+            lab[:3] = torch.tensor([0, V - 1, V - 5], device=dev, dtype=torch.int32)[:T]
+            g = torch.rand(T, generator=gen, device=dev) / T
+            g[1::3] = 0.0                                  # masked tokens
+            _, lse = score_ce_plain(h, e, lab, return_lse=True)
+            dh, de = score_ce_bwd(h, e, lab, lse, g, with_emb=True)
+            dh2, de2 = score_ce_bwd(h, e, lab, lse, g, with_emb=True)
+            torch.cuda.synchronize()
+            rdh, rde = score_ce_bwd_plain(h, e, lab, lse, g, with_emb=True)
+            name = f"score_ce_bwd with dE T={T} D={D} V={V} {dtype}"
+            errs = (check_bwd(name + " dh", dh, rdh, dtype), check_bwd(name + " dE", de, rde, dtype))
+            if not (torch.equal(dh, dh2) and torch.equal(de, de2)):
+                raise AssertionError(f"{name}: the gradients changed between two calls")
+            if not torch.equal(dh, score_ce_bwd(h, e, lab, lse, g)):
+                raise AssertionError(f"{name}: dh moved when dE was asked for")
+            if (dh[1::3] != 0).any():
+                raise AssertionError(f"{name}: a masked token got a gradient")
+            worst = max(worst, errs[1])
+            print(f"[9f] {name}: max abs err dh {errs[0]:.3e}, dE {errs[1]:.3e} (rtol "
+                  f"{BWD_RTOL[dtype]}, atol {BWD_ATOL[dtype]} x max |plain|); bitwise equal "
+                  "between two calls")
+            del h, e, dh, de, dh2, de2, rdh, rde
+        free_card()
+    cfg = get_config("gpt2-base")                      # full width, bf16, tied
+    tasks = make_tasks(vocab=32, partitions=4)
+    batch, P = 32, 8                                   # the reference's pretraining batch and prompt
+    T, D, V = batch * (tasks[0].input_len + tasks[0].target_len + 1), cfg.d_model, cfg.vocab_size
+    h = torch.randn(T, D, generator=gen, device=dev).to(torch.bfloat16)
+    e = (torch.randn(V, D, generator=gen, device=dev) * 0.05).to(torch.bfloat16)
+    lab = torch.randint(0, V, (T,), generator=gen, device=dev, dtype=torch.int32)
+    g = torch.full((T,), 1.0 / T, device=dev)
+    _, lse = score_ce(h, e, lab, return_lse=True)
+    b_ms, b_by = sce_de_bound(T, D, V, 2)
+    hg, eg = (t.detach().requires_grad_(True) for t in (h, e))
+    nll = F.cross_entropy((hg @ eg.T).float(), lab.long(), reduction="none")
+    call = lambda: score_ce_bwd(h, e, lab, lse, g, with_emb=True)
+    row = {"shape": f"gpt2-base pretraining: T={T} D={D} V={V} bf16, dh and dE",
+           "ms": time_ms(call), "dh_only_ms": time_ms(lambda: score_ce_bwd(h, e, lab, lse, g)),
+           "plain_ms": time_ms(lambda: score_ce_bwd_plain(h, e, lab, lse, g, with_emb=True),
+                               reps=5),
+           "library_ms": time_ms(lambda: torch.autograd.grad(nll, eg, g, retain_graph=True),
+                                 reps=5),
+           "library_both_ms": time_ms(lambda: torch.autograd.grad(nll, (hg, eg), g,
+                                                                  retain_graph=True), reps=5),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[9f] score_ce_bwd {row['shape']}: kernels {row['ms']:.4f} ms (dh alone "
+          f"{row['dh_only_ms']:.4f} ms), plain {row['plain_ms']:.4f} ms, library "
+          f"(cross_entropy backward to E) {row['library_ms']:.4f} ms (to h and E "
+          f"{row['library_both_ms']:.4f} ms), bound {b_ms:.4f} ms ({b_by})")
+    own_kernels("score_ce_de", kernel_launches(f"[9f] score_ce_bwd with dE T={T}", call))
+    del h, e, hg, eg, nll
+    free_card()
+
+    # (ii) five joint steps of the 2-layer f32 cut, card against CPU, from one state
+    full = Model(cfg, device=dev, seed=seed)
+    card, cpu = depth_cut(cut_state(full, 2), dev)
+    del full
+    free_card()
+    rng = np.random.default_rng(seed)
+    table0 = (rng.normal(size=(len(tasks), P, D)) * (0.5 / np.sqrt(D))).astype(np.float32)
+    picks = [int(rng.integers(len(tasks))) for _ in range(5)]
+    loaders = {ti: TaskLoader(tasks[ti], LoaderConfig(batch_size=batch, seed=seed)) for ti in picks}
+    batches = [next(loaders[ti]) for ti in picks]
+    traj = {}
+    for name, m in (("card", card), ("cpu", cpu)):
+        m.train_weights()
+        step, opt = make_pretrain_step(m, len(picks))
+        table = torch.from_numpy(table0).to(m.device).requires_grad_(True)
+        state = opt.init({**{f"params/{n}": p for n, p in m.named_parameters()}, "prompts": table})
+        traj[name] = []
+        for ti, b in zip(picks, batches):
+            table, state, loss = step(table, state, ti, batch_to_torch(b, m.device))
+            traj[name].append((float(loss), table.detach().cpu().clone(),
+                               {n: p.detach().cpu().clone() for n, p in m.named_parameters()}))
+        m.train_weights(False)
+    worst_loss = worst_weight = worst_bias = 0.0
+    lr_sum = sum(2e-3 * min(1.0, t / len(picks)) for t in range(1, len(picks) + 1))
+    for i, ((lc, tc, wc), (lr_, tr, wr)) in enumerate(zip(traj["card"], traj["cpu"])):
+        rel_l = abs(lc - lr_) / abs(lr_)
+        held = [n for n in wr if not n.endswith(ZERO_GRADIENT_LEAVES)]
+        rel_w = max([rel_gap(tc, tr)] + [rel_gap(wc[n], wr[n]) for n in held])
+        bias = max([(wc[n] - wr[n]).abs().max().item() for n in wr if n not in held] + [0.0])
+        worst_loss, worst_weight = max(worst_loss, rel_l), max(worst_weight, rel_w)
+        worst_bias = max(worst_bias, bias)
+        print(f"[9f] joint step {i + 1} (task {picks[i]}): loss card {lc:.6f} cpu {lr_:.6f} "
+              f"(rel {rel_l:.2e}); worst of the table and every weight ||card - cpu|| / ||cpu|| "
+              f"{rel_w:.2e}; key biases (gradient 0) max abs diff {bias:.2e}")
+    if not (worst_loss <= PRETRAIN_F32_LOSS_RTOL and worst_weight <= PRETRAIN_F32_WEIGHT_TOL
+            and worst_bias <= 2 * lr_sum):
+        raise AssertionError(f"[9f] the 2-layer f32 cut's pretraining on the card left the CPU's: "
+                             f"loss {worst_loss:.2e} (tol {PRETRAIN_F32_LOSS_RTOL}), weights "
+                             f"{worst_weight:.2e} (tol {PRETRAIN_F32_WEIGHT_TOL}), key biases "
+                             f"{worst_bias:.2e} (bound {2 * lr_sum:.2e})")
+    print(f"[9f] 2-layer f32 cut of {cfg.name}, 5 joint steps (batch {batch}, P={P}), card against "
+          f"CPU: worst loss rel {worst_loss:.2e} (tol {PRETRAIN_F32_LOSS_RTOL}), worst weight or "
+          f"table rel {worst_weight:.2e} (tol {PRETRAIN_F32_WEIGHT_TOL})")
+    del card, cpu, traj
+    free_card()
+
+    # (iii) pretrain at full width, 20 steps, no cache
+    steps = 20
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    pre, launches = main_path(f"[9f] pretrain, {steps} steps", lambda: pretrain(
+        "gpt2-base", steps=steps, prompt_len=P, batch_size=batch, partitions=4, seed=seed,
+        cache=False, device=dev, cfg=cfg), PRETRAINING)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    print(f"[9f] {cfg.name} pretrain ({cfg.num_layers} layers, d={D}, V={V}, {cfg.dtype}, tied; "
+          f"{len(tasks)} tasks, batch {batch}, P={P}): {steps} steps in {wall:.3f} s "
+          f"({wall / steps * 1e3:.3f} ms a step with the weights' draw); losses "
+          f"{[round(l, 4) for l in pre.losses]}; max_memory_allocated {peak:.2f} GiB")
+    if len(pre.losses) != steps or not np.isfinite(pre.losses).all():
+        raise AssertionError(f"[9f] pretrain did not run {steps} finite steps: {pre.losses}")
+    model = pre.model
+    model.train_weights()
+    step, opt = make_pretrain_step(model, steps)
+    table = torch.from_numpy(np.stack([pre.task_prompts[t.task_id] for t in tasks])).to(dev)
+    holder = {"table": table.requires_grad_(True)}
+    holder["opt"] = opt.init({**{f"params/{n}": p for n, p in model.named_parameters()},
+                              "prompts": holder["table"]})
+    b0 = batch_to_torch(next(TaskLoader(tasks[0], LoaderConfig(batch_size=batch, seed=seed))), dev)
+
+    def one_step():
+        holder["table"], holder["opt"], _ = step(holder["table"], holder["opt"], 0, b0)
+
+    main_path("[9f] one step", one_step, PRETRAINING)
+    profile = step_profile(f"[9f] one joint pretraining step, batch {batch} x "
+                           f"{P + b0['tokens'].shape[1]} positions", one_step,
+                           batch * (P + b0["tokens"].shape[1]))
+    model.train_weights(False)
+    del holder, step, opt
+    free_card()
+
+    # (iv) a checkpoint written and read back bitwise
+    path = ROOT / "build" / "chip_smoke_pretrain.npz"
+    table = np.stack([pre.task_prompts[t.task_id] for t in tasks])
+    save_checkpoint(str(path), {"params": params_to_jax(model.state_dict()), "prompt_table": table},
+                    step=steps, meta={"llm": "gpt2-base", "tasks": [t.task_id for t in tasks]})
+    tree, manifest = load_checkpoint(str(path))
+    back = Model(cfg, device=dev, seed=None)
+    back.load_state_dict(params_from_jax(tree["params"]))
+    same = all(torch.equal(a, b) for a, b in zip(model.state_dict().values(),
+                                                back.state_dict().values()))
+    if not same or not np.array_equal(tree["prompt_table"], table) or manifest["step"] != steps:
+        raise AssertionError("[9f] the checkpoint did not read back bitwise")
+    print(f"[9f] checkpoint {path.name}: {len(manifest['keys'])} arrays, "
+          f"{path.stat().st_size / 1e6:.1f} MB, read back bitwise into a fresh model")
+    del back, tree
+    path.unlink()
+    path.with_name(path.name + ".json").unlink()
+
+    # (v) the Prompt Bank from the result, and one lookup through score_ce
+    t0 = time.perf_counter()
+    bank = build_bank_from_pretrain(pre, variants_per_prompt=2, seed=seed)
+    build_s = time.perf_counter() - t0
+    score_fn = make_score_fn(model, tasks[5], TuneConfig(prompt_len=P))
+    before = score_ce.launches
+    res = bank.lookup(score_fn)
+    print(f"[9f] bank from the pretrained result: {len(bank.entries)} candidates, "
+          f"{len(bank.medoid_ids)} clusters in {build_s:.3f} s; lookup for {tasks[5].task_id}: "
+          f"origin={res.entry.origin} score={res.score:.6f} evaluations={res.evaluations}, "
+          f"score_ce launches {score_ce.launches - before}")
+    if not np.isfinite(res.score) or score_ce.launches == before:
+        raise AssertionError(f"[9f] the lookup on the pretrained bank gave {res}")
+    del model, pre, bank
+    free_card()
+    return {"row": row, "worst": worst, "launches": launches, "steps": steps, "peak_gib": peak,
+            "profile": profile}
 
 
 def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
@@ -1934,7 +2520,8 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 
 
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
-                 mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict) -> list:
+                 mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
+                 pre: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -1946,17 +2533,28 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                 "mla_decode": "src/repro/kernels/mla_decode.py:133",
                 # no TPU kernel: the reference differentiates lpt_loss through XLA
                 "score_ce_bwd": "src/repro/train/objectives.py:80",
-                "flash_attention_bwd": "src/repro/train/objectives.py:80"}
+                "flash_attention_bwd": "src/repro/train/objectives.py:80",
+                # ... its chunked WKV scan, and pretraining's loss to the weights
+                "rwkv6_wkv_bwd": "src/repro/models/ssm.py:87",
+                "score_ce_de": "src/repro/train/pretrain.py:127"}
     sources = {"score_ce": "score_ce", "flash_attention": "flash_attention",
                "flash_decode": "flash_decode", "rwkv6_wkv": "rwkv_wkv",
                "mla_decode": "mla_decode", "score_ce_bwd": "score_ce",
-               "flash_attention_bwd": "flash_attention_bwd"}
-    worst = {**worst, "mla_decode": mla["worst"], **bwd["worst"]}
+               "flash_attention_bwd": "flash_attention_bwd", "rwkv6_wkv_bwd": "rwkv_wkv_bwd",
+               "score_ce_de": "score_ce"}
+    rtune = rwkv["tune"]
+    worst = {**worst, "mla_decode": mla["worst"], **bwd["worst"], "rwkv6_wkv_bwd": rtune["worst"],
+             "score_ce_de": pre["worst"]}
     path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
-    tuning = lambda name: {"gpt2-base, tune (40 iterations, 4 evaluations)":
-                           tune["launches"][name],
-                           f"vicuna-7b, train_4k (3 steps, batch {train['batch']})":
-                           train["launches"][name]}
+    rwkv_tune = f"rwkv6-7b, tune ({rtune['iters']} iterations, 1 evaluation)"
+    pretraining = f"gpt2-base, pretrain ({pre['steps']} steps)"
+    tuning = lambda name: {
+        k: n for k, n in (("gpt2-base, tune (40 iterations, 4 evaluations)",
+                           tune["launches"].get(name)),
+                          (f"vicuna-7b, train_4k (3 steps, batch {train['batch']})",
+                           train["launches"].get(name)),
+                          (rwkv_tune, rtune["launches"].get(name)),
+                          (pretraining, pre["launches"].get(name))) if n is not None}
     paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
                      + bwd["rows"]["score_ce"],
@@ -1971,15 +2569,18 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
         "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
                                 tuning("flash_attention_bwd")),
         "flash_decode": ([serve], {"qwen2-7b, serve steps": serve["launches"]}),
-        "rwkv6_wkv": (rwkv["rows"], path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"])),
+        "rwkv6_wkv": (rwkv["rows"], {**path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"]),
+                                     **tuning("rwkv6_wkv")}),
+        "rwkv6_wkv_bwd": (rtune["rows"], tuning("rwkv6_wkv_bwd")),
+        "score_ce_de": ([pre["row"]], tuning("score_ce_de")),
         "mla_decode": (mla["rows"], {"deepseek-v2-236b, serve steps": mla_serve["launches"]}),
     }
     keys = ("shape", "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
     return [{"name": name, "route": "cuda",
              "source": f"src/repro_torch/kernels/csrc/{sources[name]}.cu",
              "replaces": replaces[name],
-             **({"counterpart": "none: the reference differentiates lpt_loss through XLA"}
-                if name.endswith("_bwd") else {}),
+             **({"counterpart": "none: the reference differentiates through XLA"}
+                if name.endswith(("_bwd", "_de")) else {}),
              **({"dq_run_to_run": bwd["dq_run_to_run"]} if name == "flash_attention_bwd" else {}),
              "launches": sum(by_shape.values()),
              "launches_by_shape": by_shape, "max_abs_err": worst[name],
@@ -2012,12 +2613,14 @@ def main() -> None:
     free_card()
     bwd = phase_backward_kernels(dev, args.seed)
     tune = phase_tune_gpt2(dev, args.seed)
+    pre = phase_pretrain(dev, args.seed)
     train = phase_train_vicuna(dev, args.seed)
     free_card()
     mla = phase_mla_kernel(dev, args.seed)
     mla_serve = phase_mla_serve(dev, args.seed)
 
-    kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train)
+    kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
+                           pre)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,6 +1,7 @@
 from repro_torch.core.bank_builder import (
     ScoreContext,
     build_bank,
+    build_bank_from_pretrain,
     make_score_fn,
     measure_ita,
     select_ideal,
@@ -15,6 +16,7 @@ __all__ = [
     "PromptEntry",
     "ScoreContext",
     "build_bank",
+    "build_bank_from_pretrain",
     "make_score_fn",
     "measure_ita",
     "select_ideal",

@@ -1,11 +1,12 @@
 """Assemble a Prompt Bank from task prompts, bind Eqn-1 scoring to a task,
 and the initial-prompt selection strategies the paper compares (§6.1, Fig 9).
 
-Counterparts of the reference's ``core/bank_builder.py``. The port has no
-``PretrainResult``, so where the reference takes one these take the model
-and the task prompts directly: ``build_bank`` is ``build_bank_from_pretrain``
-(the same numpy jitter, one batched feature extraction, the same cluster
-count), ``select_induction`` takes the task prompts, ``measure_ita`` the
+Counterparts of the reference's ``core/bank_builder.py``.
+``build_bank_from_pretrain`` takes a ``PretrainResult`` (the port's
+``train.pretrain``) as the reference's does; it is ``build_bank`` on the
+result's model and task prompts (the same numpy jitter, one batched feature
+extraction, the same cluster count), which also takes any model and
+prompts. ``select_induction`` takes the task prompts, ``measure_ita`` the
 model, and ``select_manual`` the prompt's shape.
 """
 from __future__ import annotations
@@ -56,6 +57,13 @@ def build_bank(
     bank.add_candidates(entries)
     bank.build()
     return bank
+
+
+def build_bank_from_pretrain(pre, **kwargs) -> PromptBank:
+    """The Prompt Bank of a pretraining run: ``build_bank(pre.model,
+    pre.task_prompts, **kwargs)``, candidates the run's per-task prompts and
+    their jittered variants, features the pretrained model's activations."""
+    return build_bank(pre.model, pre.task_prompts, **kwargs)
 
 
 @dataclass

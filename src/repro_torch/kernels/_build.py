@@ -107,10 +107,12 @@ def device_kind(*tensors: torch.Tensor) -> str:
 
 def check_launchable(name: str, *tensors: torch.Tensor) -> None:
     """Conditions every CUDA launch needs: contiguous rows 16-byte aligned
-    (the kernels load 16 bytes a thread) and no autograd graph. ``score_ce``
-    and ``flash_attention`` take gradients through their
-    ``torch.autograd.Function``s, which launch with grad disabled; the
-    kernels without a backward kernel refuse a call under autograd."""
+    (the kernels load 16 bytes a thread) and no autograd graph. ``score_ce``,
+    ``flash_attention`` and ``rwkv6_wkv`` take gradients through their
+    ``torch.autograd.Function``s, which launch with grad disabled; the two
+    decode kernels, ``flash_decode`` and ``mla_decode``, have no backward
+    (the reference never differentiates a decode step) and refuse a call
+    under autograd."""
     for t in tensors:
         if t.stride(-1) != 1:
             raise ValueError(f"{name}: the last dim of every input must be contiguous")
@@ -118,9 +120,9 @@ def check_launchable(name: str, *tensors: torch.Tensor) -> None:
             raise ValueError(f"{name}: inputs must be 16-byte aligned")
         if t.requires_grad and torch.is_grad_enabled():
             raise NotImplementedError(
-                f"{name}: the CUDA kernel is forward-only (it has no backward kernel, so "
-                f"no gradient can flow through it); run it under torch.no_grad(): tuning a "
-                f"prompt through {name} waits for its backward")
+                f"{name}: flash_decode and mla_decode are forward-only (a decode step is "
+                f"never differentiated, so they have no backward kernel); run them under "
+                f"torch.no_grad()")
 
 
 def stream_ptr(device: torch.device) -> int:

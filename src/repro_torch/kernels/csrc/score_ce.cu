@@ -56,6 +56,14 @@
 // this file adds G · E into f32 partials split over the vocabulary (a short
 // T has few output tiles), and a last pass sums them in a fixed order. f32:
 // the G pass on the CUDA cores, G · E left to the caller.
+//
+// The embedding's gradient (score_ce_de_launch, for pretraining the tied
+// embedding; no TPU counterpart either): dE = Gᵀ · h, one vocabulary chunk
+// of G at a time, after that chunk's G pass. What bounds it: 2·T·V·D
+// operations more, so that the backward with dE does three such products
+// (the logits again, dh and dE: 6·T·V·D, 0.12 ms at gpt2-base's V and D for
+// T = 512 rows at 989 TFLOP/s). bf16: a wgmma kernel of this file
+// (score_ce_de_bf16 below); f32: left to the caller, as f32 G · E is.
 #include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -369,7 +377,8 @@ __global__ void score_ce_combine(const float* __restrict__ part_m,
 //
 // dL/dhidden = G · E, G[r, c] = g_r · (exp(logit[r, c] − lse_r) − [c == label_r]),
 // one vocabulary chunk [c0, c0 + width) at a time, so that only a (T, chunk)
-// slice of G is ever in memory. E is frozen, so no dE is formed. bf16:
+// slice of G is ever in memory. dE, when it is asked for, is formed from the
+// same chunk of G after this pass (see "the embedding's gradient"). bf16:
 //   1. score_ce_bwd_bf16 recomputes the chunk's logits with the forward's
 //      producer and main loop, each block walking its own range of
 //      256-column tiles with the ring kept full across them, and writes G in
@@ -609,6 +618,121 @@ __global__ void score_ce_ge_sum(const float* __restrict__ part, __nv_bfloat16* _
   out[1] = __floats2bfloat162_rn(acc.z, acc.w);
 }
 
+// -- the embedding's gradient --------------------------------------------------------
+//
+// dE[c0 + m, :] = Σ_r G[r, m] · h[r, :] over the T tokens r, for the chunk's
+// columns m of G (bf16, rows ldg apart) as the G pass left them. Each chunk
+// owns its rows of dE, so there is no split, no atomic and no partial: a
+// block owns a 128 × 256 tile of dE (128 vocabulary rows, 256 columns of D),
+// walks the whole depth T with its sums in f32 registers, and rounds to
+// E's type (bf16) once. A stage is 64 tokens: Gᵀ's 128 × 64, two 64-column
+// boxes of G read MN-major (the vocabulary runs along G's rows), and h's
+// 64 × 256, four 64-column boxes read MN-major (D runs along h's rows), as
+// score_ce_ge_bf16 reads E; a ring of 4 stages fed by TMA from one producer
+// thread, two consumer warpgroups of 64 vocabulary rows. Rows of T past the
+// end and columns past ldg arrive as TMA's zeros; rows past the chunk are
+// not stored. The grid walks the column tiles of D fastest, so the blocks
+// that read one tile of G run together and share it through L2.
+
+// acc (this warpgroup's 64 vocabulary rows × 256 columns of D) = Gᵀ · h over
+// the ring's first n_k stages: wgmma m64n256k16, A and B both MN-major.
+__device__ __forceinline__ void de_products(float (&acc)[128], uint32_t a_base, uint32_t b_base,
+                                            uint64_t* full, uint64_t* empty, int n_k) {
+  const int lane = threadIdx.x & 31;
+  int stage = 0, prev = -1;
+  uint32_t phase = 0;
+  for (int kt = 0; kt < n_k; ++kt) {
+    mbar_wait(&full[stage], phase);
+    wgmma_fence();
+    const uint32_t a = a_base + stage * kStageA, b = b_base + stage * kStageB;
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      wgmma_m64n256k16_ss<1, 1>(acc, desc_mn_major(a + kk * 2048, kStageA / 2),
+                                desc_mn_major(b + kk * 2048, kStageB / 4),
+                                (kt > 0 || kk > 0) ? 1 : 0);
+    wgmma_commit();
+    wgmma_wait<1>();   // the previous stage's products are done
+    if (prev >= 0) {
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[prev]);
+    }
+    prev = stage;
+    if (++stage == kStages) { stage = 0; phase ^= 1; }
+  }
+  wgmma_wait<0>();
+  fence_regs(acc);
+  __syncwarp();
+  if (lane == 0 && prev >= 0) mbar_arrive(&empty[prev]);
+}
+
+// Block (column tile of D, vocabulary row tile), column tiles fastest.
+__global__ void __launch_bounds__(kTcThreads, 1)
+score_ce_de_bf16(const __grid_constant__ CUtensorMap tm_g, const __grid_constant__ CUtensorMap tm_h,
+                 __nv_bfloat16* __restrict__ de, int n_tok, int dim, int c0, int v_end,
+                 int d_tiles) {
+  extern __shared__ uint8_t smem_raw[];
+  uint8_t* smem = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  uint8_t* sa = smem;                             // kStages × (2 × 64 tokens × 64 columns of G)
+  uint8_t* sb = smem + kStages * kStageA;         // kStages × (4 × 64 tokens × 64 columns of h)
+  uint64_t* full = reinterpret_cast<uint64_t*>(sb + kStages * kStageB);
+  uint64_t* empty = full + kStages;
+
+  const int warp = threadIdx.x >> 5;
+  const int dt = blockIdx.x % d_tiles, mt = blockIdx.x / d_tiles;
+  const int n_k = (n_tok + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kConsumerWarps);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, warp >> 2, 0);
+  if (wg == kConsumerWarps / 4) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 32 * kConsumerWarps) {
+      int stage = 0;
+      uint32_t phase = 0;
+      for (int kt = 0; kt < n_k; ++kt) {
+        mbar_wait(&empty[stage], phase ^ 1);
+        mbar_expect_tx(&full[stage], kStageA + kStageB);
+#pragma unroll
+        for (int mb = 0; mb < 2; ++mb)
+          tma_load_2d(sa + stage * kStageA + mb * (kStageA / 2), &tm_g, &full[stage],
+                      mt * kBM + 64 * mb, kt * kBK);
+#pragma unroll
+        for (int cb = 0; cb < kBN / 64; ++cb)
+          tma_load_2d(sb + stage * kStageB + cb * (kStageB / 4), &tm_h, &full[stage],
+                      dt * kBN + 64 * cb, kt * kBK);
+        if (++stage == kStages) { stage = 0; phase ^= 1; }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+    const int lane = threadIdx.x & 31, t = lane & 3;
+    float acc[128];
+#pragma unroll
+    for (int i = 0; i < 128; ++i) acc[i] = 0.f;
+    de_products(acc, smem_u32(sa) + wg * (kStageA / 2), smem_u32(sb), full, empty, n_k);
+    const int m0 = c0 + mt * kBM + 64 * wg + 16 * (warp & 3) + (lane >> 2), m1 = m0 + 8;
+    __nv_bfloat16* p0 = de + (long long)m0 * dim;
+    __nv_bfloat16* p1 = de + (long long)m1 * dim;
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+      const int d = dt * kBN + 8 * j + 2 * t;
+      if (d >= dim) continue;
+      if (m0 < v_end)
+        *reinterpret_cast<__nv_bfloat162*>(p0 + d) = __floats2bfloat162_rn(acc[4 * j], acc[4 * j + 1]);
+      if (m1 < v_end)
+        *reinterpret_cast<__nv_bfloat162*>(p1 + d) =
+            __floats2bfloat162_rn(acc[4 * j + 2], acc[4 * j + 3]);
+    }
+  }
+}
+
 // f32: 64 × 64 tiles on the CUDA cores, as the f32 forward.
 __global__ void __launch_bounds__(kThreads)
 score_ce_bwd_f32(const float* __restrict__ hidden, const float* __restrict__ emb,
@@ -754,5 +878,29 @@ extern "C" int score_ce_bwd_launch(const void* hidden, const void* emb, const vo
   const long long n = (long long)n_tok * dim;
   score_ce_ge_sum<<<(unsigned)((n / 4 + 255) / 256), 256, 0, s>>>(
       pf, static_cast<__nv_bfloat16*>(dh), n, ge_splits);
+  return (int)cudaGetLastError();
+}
+
+// dE rows [c0, c0 + width) (de: vocab × dim bf16, E's layout) = the chunk's
+// G (n_tok × ldg bf16, as score_ce_bwd_launch wrote it)ᵀ · hidden (n_tok ×
+// dim bf16). Returns cudaGetLastError() after the launch (0 on success), or
+// cudaErrorInvalidValue if a tensor map cannot be made.
+extern "C" int score_ce_de_launch(const void* G, int ldg, const void* hidden, void* de, int n_tok,
+                                  int dim, int vocab, int c0, int width, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  CUtensorMap tm_g, tm_h;
+  if (!map_2d(&tm_g, G, n_tok, ldg, kBK) || !map_2d(&tm_h, hidden, n_tok, dim, kBK))
+    return (int)cudaErrorInvalidValue;
+  static bool attr = false;
+  if (!attr) {
+    const cudaError_t e = cudaFuncSetAttribute(
+        score_ce_de_bf16, cudaFuncAttributeMaxDynamicSharedMemorySize, kTcSmem);
+    if (e != cudaSuccess) return (int)e;
+    attr = true;
+  }
+  const int v_end = c0 + width < vocab ? c0 + width : vocab;
+  const int m_tiles = (width + kBM - 1) / kBM, d_tiles = (dim + kBN - 1) / kBN;
+  score_ce_de_bf16<<<m_tiles * d_tiles, kTcThreads, kTcSmem, s>>>(
+      tm_g, tm_h, static_cast<__nv_bfloat16*>(de), n_tok, dim, c0, v_end, d_tiles);
   return (int)cudaGetLastError();
 }

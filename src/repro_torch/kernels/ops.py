@@ -109,5 +109,8 @@ def wkv(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
     """Model layout adapter: r/k/v/logw (B, H, T, hd), u (H, hd), state
     (B, H, hd, hd) f32 or None -> (y (B, H, T, hd) f32, state'). Unlike the
     reference no reshape to (B·H, T, hd) is needed: the kernel takes the
-    strides of the views it is given."""
+    strides of the views it is given. Under autograd the call goes through
+    ``RWKV6WKV``, whose backward is the hand-written ``rwkv6_wkv_bwd``
+    kernel: gradients reach r, k, v, logw, the start state and (when it
+    requires grad) u."""
     return rwkv6_wkv(r, k, v, logw, u, state)

@@ -9,11 +9,13 @@ design and bounds are in ``csrc/score_ce.cu``.
 ``score_ce_plain`` only for CPU tensors. ``score_ce.launches`` counts the
 kernel's launches (the main kernel and its combine pass count as one).
 
-Under autograd (grad enabled and ``hidden`` requiring it) the call goes
-through ``ScoreCE``: its forward also keeps each token's log-sum-exp, and
-its backward is ``score_ce_bwd``, dL/dhidden only (the embedding is frozen,
-as the reference's model is). The reference has no such kernel: it takes
-this gradient through XLA.
+Under autograd (grad enabled and ``hidden`` or ``emb`` requiring it) the
+call goes through ``ScoreCE``: its forward also keeps each token's
+log-sum-exp, and its backward is ``score_ce_bwd``: dL/dhidden and, when
+``emb`` requires grad (pretraining's tied embedding; prompt tuning keeps
+the model frozen, and then nothing is launched for it), dL/demb from the
+dE kernel (``score_ce_de``). The reference has no such kernels: it takes
+these gradients through XLA.
 """
 from __future__ import annotations
 
@@ -40,13 +42,16 @@ def score_ce_plain(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor
 
 
 def score_ce_bwd_plain(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
-                       lse: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+                       lse: torch.Tensor, grad: torch.Tensor, with_emb: bool = False):
     """dL/dhidden written out in f32 with the whole (T, V) logits:
-    (grad · (softmax − onehot(labels))) @ emb, in hidden's dtype."""
+    G @ emb with G = grad · (softmax − onehot(labels)), in hidden's dtype;
+    with ``with_emb`` also dL/demb = Gᵀ @ hidden in emb's dtype."""
     logits = hidden.float() @ emb.float().T
     g = torch.exp(logits - lse.float()[:, None])
     g[torch.arange(len(labels), device=g.device), labels.long()] -= 1.0
-    return ((grad.float()[:, None] * g) @ emb.float()).to(hidden.dtype)
+    g = grad.float()[:, None] * g
+    dh = (g @ emb.float()).to(hidden.dtype)
+    return (dh, (g.T @ hidden.float()).to(emb.dtype)) if with_emb else dh
 
 
 def _lib() -> ctypes.CDLL:
@@ -57,6 +62,10 @@ def _lib() -> ctypes.CDLL:
     fn = lib.score_ce_bwd_launch
     fn.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] + [ctypes.c_void_p] * 2
                    + [ctypes.c_int] * 10 + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    fn = lib.score_ce_de_launch
+    fn.argtypes = ([ctypes.c_void_p, ctypes.c_int] + [ctypes.c_void_p] * 2
+                   + [ctypes.c_int] * 5 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
     return lib
 
@@ -126,9 +135,6 @@ def score_ce(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     nll (T,) f32, and with ``return_lse`` also the log-sum-exp (T,) f32.
     Under autograd the call goes through ``ScoreCE``."""
     if torch.is_grad_enabled() and (hidden.requires_grad or emb.requires_grad):
-        if emb.requires_grad:
-            raise NotImplementedError("score_ce: no gradient for emb (the model is frozen); "
-                                      "pass a tensor that does not require grad")
         if return_lse:
             raise ValueError("score_ce: return_lse is not differentiable")
         return ScoreCE.apply(hidden, emb, labels)
@@ -170,18 +176,39 @@ def ge_splits(n_tok: int, dim: int, width: int, sms: int) -> int:
     return max(1, s)
 
 
+def score_ce_de(G: torch.Tensor, ldg: int, hidden: torch.Tensor, de: torch.Tensor, c0: int,
+                width: int) -> None:
+    """Writes dE rows [c0, c0 + width) of ``de`` (V, D) bf16 = Gᵀ · hidden for
+    one vocabulary chunk: G as ``score_ce_bwd``'s G pass left it, (T, ldg)
+    bf16 in a buffer rows ``ldg`` apart, its first ``width`` columns the
+    chunk's. The dE kernel of ``csrc/score_ce.cu``, one launch; CUDA bf16
+    tensors only (``score_ce_bwd`` calls it once a chunk)."""
+    T, D = hidden.shape
+    rc = _lib().score_ce_de_launch(G.data_ptr(), ldg, hidden.data_ptr(), de.data_ptr(), T, D,
+                                   de.shape[0], c0, width, _build.stream_ptr(hidden.device))
+    if rc:
+        raise RuntimeError(f"score_ce_de: kernel launch failed with CUDA error {rc}")
+    score_ce_de.launches += 1
+
+
+score_ce_de.launches = 0
+
+
 def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
-                 lse: torch.Tensor, grad: torch.Tensor) -> torch.Tensor:
+                 lse: torch.Tensor, grad: torch.Tensor, with_emb: bool = False):
     """dL/dhidden (T, D) in hidden's dtype for dL/dnll = ``grad`` (T,), given
-    the forward's log-sum-exp; for CPU tensors ``score_ce_bwd_plain``. For
-    CUDA tensors the kernel runs one launch a vocabulary chunk, each writing
-    that chunk's G = grad · (softmax − onehot) in hidden's dtype. bf16: the
-    kernel also adds each chunk's G·E into f32 partials split over the
-    vocabulary (``ge_splits``) and, after the last chunk, sums them in split
-    order, so the whole sum is f32 and deterministic. f32: G·E is a matrix
-    product summed in f32 here."""
+    the forward's log-sum-exp, and with ``with_emb`` also dL/demb (V, D) in
+    emb's dtype; for CPU tensors ``score_ce_bwd_plain``. For CUDA tensors
+    the kernel runs one launch a vocabulary chunk, each writing that chunk's
+    G = grad · (softmax − onehot) in hidden's dtype. bf16: the kernel also
+    adds each chunk's G·E into f32 partials split over the vocabulary
+    (``ge_splits``) and, after the last chunk, sums them in split order, so
+    the whole sum is f32 and deterministic; dE's rows of the chunk are
+    ``score_ce_de``'s, one launch a chunk, each row summed over the tokens
+    in f32 in a fixed order. f32: G·E and Gᵀ·hidden are matrix products
+    summed in f32 here. Without ``with_emb`` nothing is launched for dE."""
     if _build.device_kind(hidden, emb, labels, lse, grad) == "cpu":
-        return score_ce_bwd_plain(hidden, emb, labels, lse, grad)
+        return score_ce_bwd_plain(hidden, emb, labels, lse, grad, with_emb)
     grad = grad.float().contiguous()
     _check(hidden, emb, labels, "score_ce_bwd", lse, grad)
     if lse.dtype != torch.float32 or lse.shape != labels.shape:
@@ -200,6 +227,7 @@ def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
     else:
         n_ge, part = 0, None
         dh = torch.zeros((T, D), dtype=torch.float32, device=dev)
+    de = torch.empty((V, D), dtype=emb.dtype, device=dev) if with_emb else None
     lib = _lib()
     for c0 in range(0, V, chunk):
         width = min(chunk, V - c0)
@@ -213,8 +241,13 @@ def score_ce_bwd(hidden: torch.Tensor, emb: torch.Tensor, labels: torch.Tensor,
             raise RuntimeError(f"score_ce_bwd: kernel launch failed with CUDA error {rc}")
         score_ce_bwd.launches += 1
         if not is_bf16:
-            dh += G.view(-1)[:T * ldg].view(T, ldg)[:, :width] @ emb[c0:c0 + width]
-    return dh.to(hidden.dtype)
+            g = G.view(-1)[:T * ldg].view(T, ldg)[:, :width]
+            dh += g @ emb[c0:c0 + width]
+            if with_emb:
+                torch.matmul(g.T, hidden, out=de[c0:c0 + width])
+        elif with_emb:
+            score_ce_de(G, ldg, hidden, de, c0, width)
+    return (dh.to(hidden.dtype), de) if with_emb else dh.to(hidden.dtype)
 
 
 score_ce_bwd.launches = 0
@@ -222,8 +255,8 @@ score_ce_bwd.launches = 0
 
 class ScoreCE(torch.autograd.Function):
     """``score_ce`` with its backward: the forward keeps hidden, labels and
-    the log-sum-exp; the backward is ``score_ce_bwd`` (no gradient for emb
-    or labels)."""
+    the log-sum-exp; the backward is ``score_ce_bwd``, with dE only when
+    ``emb`` requires grad (no gradient for labels)."""
 
     @staticmethod
     def forward(ctx, hidden, emb, labels):
@@ -234,4 +267,7 @@ class ScoreCE(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         hidden, emb, labels, lse = ctx.saved_tensors
+        if ctx.needs_input_grad[1]:
+            dh, de = score_ce_bwd(hidden, emb, labels, lse, grad, with_emb=True)
+            return dh, de, None
         return score_ce_bwd(hidden, emb, labels, lse, grad), None, None

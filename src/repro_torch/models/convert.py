@@ -10,21 +10,23 @@ transposes nothing: both packages use the same layouts.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+from typing import TYPE_CHECKING, Any, Dict, Optional
 
 import numpy as np
 import torch
 
-from repro_torch.train.optimizer import OptState
+if TYPE_CHECKING:   # imported where used: the train package imports this module's package
+    from repro_torch.train.optimizer import OptState
 
 STACKED = ("blocks", "dense0", "moe")   # segments whose parameters carry a layer axis
 
 
-def _flatten(tree, prefix: str = "") -> Dict[str, Any]:
+def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
+    """A nested dict -> {"/"-joined path: leaf}, the checkpoints' keys."""
     out: Dict[str, Any] = {}
     if isinstance(tree, dict):
         for k, v in tree.items():
-            out.update(_flatten(v, f"{prefix}/{k}" if prefix else k))
+            out.update(flatten_tree(v, f"{prefix}/{k}" if prefix else k))
     else:
         out[prefix] = tree
     return out
@@ -42,7 +44,7 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     ``state_dict`` for ``Model.load_state_dict``, which copies each tensor
     onto the model's device and dtype."""
     state: Dict[str, torch.Tensor] = {}
-    for path, arr in _flatten(tree).items():
+    for path, arr in flatten_tree(tree).items():
         seg, *rest = path.split("/")
         if seg in STACKED:
             arr = np.asarray(arr)
@@ -53,10 +55,35 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     return state
 
 
+def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
+    """The inverse of ``params_from_jax``: a ``state_dict`` -> the
+    reference's nested tree of numpy arrays, each segment's layers stacked
+    on a leading axis in layer order (bf16 widened to f32, exactly)."""
+    tree: Dict[str, Any] = {}
+    layers: Dict[tuple, Dict[int, np.ndarray]] = {}
+    for key, t in state.items():
+        arr = t.detach().cpu()
+        arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
+        path = key.split(".")
+        if path[0] in STACKED:
+            layers.setdefault((path[0], *path[2:]), {})[int(path[1])] = arr
+            continue
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = arr
+    for path, by_layer in layers.items():
+        node = tree
+        for p in path[:-1]:
+            node = node.setdefault(p, {})
+        node[path[-1]] = np.stack([by_layer[i] for i in range(len(by_layer))])
+    return tree
+
+
 def load_jax_checkpoint(path: str) -> Dict:
-    """Reads a checkpoint written by the reference's ``train/checkpoint.py``
-    (path-keyed arrays such as ``params/blocks/attn/wq``) into its nested
-    numpy tree."""
+    """Reads a checkpoint written by either package's
+    ``train/checkpoint.py`` (path-keyed arrays such as
+    ``params/blocks/attn/wq``) into its nested numpy tree."""
     root: Dict[str, Any] = {}
     with np.load(path if path.endswith(".npz") else path + ".npz") as data:
         for key in data.files:
@@ -81,6 +108,8 @@ def opt_state_from_jax(state, device) -> OptState:
     keeps no moment) as the port's, on ``device``."""
     def tree(t: Optional[Dict]) -> Optional[Dict[str, torch.Tensor]]:
         return None if t is None else {k: _to_tensor(v).float().to(device) for k, v in t.items()}
+
+    from repro_torch.train.optimizer import OptState
 
     step = torch.tensor(int(np.asarray(state.step)), dtype=torch.int32, device=device)
     return OptState(step, tree(state.mu), tree(state.nu))

@@ -6,7 +6,11 @@ of a full sequence as a chunked scan (its TPU kernel ``rwkv6_wkv`` is the
 fused twin of that scan); here ``rwkv6_forward`` calls ``ops.wkv``: the
 Hopper kernel on CUDA tensors, the sequential recurrence on CPU tensors. The
 one-token ``rwkv6_decode`` is plain tensor code on both devices, as the
-reference's is XLA.
+reference's is XLA. Under autograd (prompt tuning) ``ops.wkv`` goes through
+``RWKV6WKV``, whose backward is the hand-written ``rwkv6_wkv_bwd`` kernel
+on the card; the gradient reaches the prompt through ``_rwkv6_inputs``
+(token shift, ddlerp, LoRAs, the decay clamp), as XLA's does in the
+reference.
 
 State: ``s`` (B, H, hd, hd) f32 [key dim x value dim] and the token-shift
 ``x_prev`` (B, d_model) in the activation dtype.
@@ -109,7 +113,9 @@ def rwkv6_forward(cfg: ModelConfig, p: RWKV6TimeMix, x: torch.Tensor,
                   state: Optional[Dict[str, torch.Tensor]] = None
                   ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """x: (B, S, d). Returns (y (B, S, d), new state). A ``None`` state is
-    the zero state, and the kernel then skips reading it."""
+    the zero state, and the kernel then skips reading it. A final state
+    that the caller does not use (``lpt_loss``) hands the backward no
+    gradient, which then starts from zeros without a launch for it."""
     x_prev = (torch.zeros_like(x[:, 0]) if state is None else state["x_prev"])
     r, k, v, g, logw = _rwkv6_inputs(cfg, p, x, x_prev)
     y, s = ops.wkv(r.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2),

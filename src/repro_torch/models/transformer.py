@@ -201,7 +201,8 @@ class Model(nn.Module):
     ``moe``). The weights are frozen (``requires_grad`` False, also after
     ``load_state_dict``), as the reference's are under LPT: a forward keeps
     no autograd graph unless the prompt requires grad, and then the graph
-    carries the prompt's gradient alone."""
+    carries the prompt's gradient alone. Pretraining alone trains them,
+    through ``train_weights``."""
 
     def __init__(self, cfg: ModelConfig, *, device: DeviceLike = None,
                  seed: Optional[int] = 0):
@@ -226,6 +227,7 @@ class Model(nn.Module):
         for seg in self.segments:
             setattr(self, seg.name, nn.ModuleList(
                 BLOCKS[seg.kind](cfg, device=dev, dtype=pdt) for _ in range(seg.count)))
+        self._train_weights = False
         self.requires_grad_(False)          # frozen, as the reference's: gradients reach the prompt only
         if seed is not None:
             self.init_weights(seed)
@@ -257,9 +259,25 @@ class Model(nn.Module):
 
     def load_state_dict(self, state_dict, strict: bool = True, assign: bool = False):
         result = super().load_state_dict(state_dict, strict=strict, assign=assign)
-        self.requires_grad_(False)          # ``assign`` may bring in tensors that require grad
+        self.requires_grad_(self._train_weights)   # ``assign`` may bring in tensors that require grad
         self._refresh_output_embedding()
         return result
+
+    def train_weights(self, on: bool = True) -> "Model":
+        """Pretraining's switch: every weight requires grad (``on``), or the
+        model is frozen again, as it is on every other path. Only a tied
+        model trains: an untied unembedding reaches ``score_ce`` through its
+        (V, d) copy ``unembed_t``, which carries no gradient back to
+        ``unembed``, so ``on`` raises for it (the reference pretrains only
+        tied models: its testbed configs and gpt2-base). Returns the model."""
+        if on and not self.cfg.tie_embeddings:
+            raise NotImplementedError(
+                f"{self.cfg.name}: full-weight training of an untied model is not supported: "
+                "score_ce reads the untied unembedding through its (V, d) copy, which carries "
+                "no gradient back (pretraining trains tied models only)")
+        self._train_weights = bool(on)
+        self.requires_grad_(self._train_weights)
+        return self
 
     @torch.no_grad()
     def init_weights(self, seed: int) -> None:

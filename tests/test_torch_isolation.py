@@ -84,6 +84,7 @@ def as_if_cuda(monkeypatch):
     monkeypatch.setattr(fd_mod, "flash_decode_plain", fell_back)
     monkeypatch.setattr(fd_mod, "combine_partials_plain", fell_back)
     monkeypatch.setattr(rw_mod, "rwkv6_wkv_plain", fell_back)
+    monkeypatch.setattr(rw_mod, "rwkv6_wkv_bwd_plain", fell_back)
     monkeypatch.setattr(md_mod, "mla_decode_plain", fell_back)
     monkeypatch.setattr(md_mod, "combine_partials_plain", fell_back)
 
@@ -131,8 +132,9 @@ def test_flash_attention_raises_on_cuda_misuse(as_if_cuda):
 
 
 def test_backward_wrappers_raise_on_cuda_misuse(as_if_cuda):
-    """The two backward wrappers check what their kernels take and, handed
-    CUDA tensors, launch or raise; they never fall back."""
+    """The backward wrappers check what their kernels take and, handed
+    CUDA tensors, launch or raise; they never fall back. A gradient for the
+    embedding goes through ScoreCE to the same launches."""
     h, e = torch.zeros(8, 16), torch.zeros(32, 16)
     lab = torch.zeros(8, dtype=torch.int32)
     lse, g = torch.zeros(8), torch.ones(8)
@@ -143,8 +145,13 @@ def test_backward_wrappers_raise_on_cuda_misuse(as_if_cuda):
     before = sc_mod.score_ce_bwd.launches
     _raises_without_fallback(lambda: sc_mod.score_ce_bwd(h, e, lab, lse, g))
     assert sc_mod.score_ce_bwd.launches == before
-    with pytest.raises(NotImplementedError, match="frozen"):
+    before_de = sc_mod.score_ce_de.launches
+    _raises_without_fallback(lambda: sc_mod.score_ce_bwd(h, e, lab, lse, g, with_emb=True))
+    with pytest.raises(Exception) as info:
         sc_mod.score_ce(h.requires_grad_(True), e.clone().requires_grad_(True), lab)
+    assert not isinstance(info.value, (FellBack, NotImplementedError))
+    assert sc_mod.score_ce_bwd.launches == before
+    assert sc_mod.score_ce_de.launches == before_de
 
     q, kv = torch.zeros(1, 4, 8, 64), torch.zeros(1, 2, 8, 64)
     lse = torch.zeros(1, 4, 8)
@@ -195,12 +202,30 @@ def test_rwkv6_wkv_raises_on_cuda_misuse(as_if_cuda):
                              ValueError, "state")
     _raises_without_fallback(lambda: rw_mod.rwkv6_wkv(r, r, r, r[:, :, :4], u, s),
                              ValueError, "shape")
-    grad_r = r.clone().requires_grad_(True)
-    _raises_without_fallback(lambda: rw_mod.rwkv6_wkv(grad_r, r, r, r, u, s),
-                             NotImplementedError, "forward-only")
     before = rw_mod.rwkv6_wkv.launches
     _raises_without_fallback(lambda: rw_mod.rwkv6_wkv(r, r, r, r, u, None))
+    # under autograd the call goes through RWKV6WKV to the same launch
+    grad_r = r.clone().requires_grad_(True)
+    with pytest.raises(Exception) as info:
+        rw_mod.rwkv6_wkv(grad_r, r, r, r, u, s)
+    assert not isinstance(info.value, (FellBack, NotImplementedError))
     assert rw_mod.rwkv6_wkv.launches == before
+
+
+def test_rwkv6_wkv_bwd_raises_on_cuda_misuse(as_if_cuda):
+    r, dy = torch.zeros(2, 3, 5, 64), torch.zeros(2, 3, 5, 64)
+    u, s = torch.zeros(3, 64), torch.zeros(2, 3, 64, 64)
+    _raises_without_fallback(lambda: rw_mod.rwkv6_wkv_bwd(r[..., :32], r[..., :32], r[..., :32],
+                                                          r[..., :32], u[:, :32], None,
+                                                          dy[..., :32]),
+                             ValueError, "head_dim=32")
+    _raises_without_fallback(lambda: rw_mod.rwkv6_wkv_bwd(r, r, r, r, u, s, dy[:, :, :4]),
+                             ValueError, "dy")
+    _raises_without_fallback(lambda: rw_mod.rwkv6_wkv_bwd(r, r, r, r, u, s, dy, s[:1]),
+                             ValueError, "ds")
+    before = rw_mod.rwkv6_wkv_bwd.launches
+    _raises_without_fallback(lambda: rw_mod.rwkv6_wkv_bwd(r, r, r, r, u, s, dy, s))
+    assert rw_mod.rwkv6_wkv_bwd.launches == before
 
 
 def test_mla_decode_raises_on_cuda_misuse(as_if_cuda):

@@ -17,6 +17,7 @@ import pytest
 import torch
 
 from test_torch_model import numpy_params
+from test_torch_rwkv import numpy_params as rwkv_numpy_params
 
 from repro.config import TuneConfig as JTuneConfig
 from repro.configs import smoke_config as jax_smoke_config
@@ -112,6 +113,7 @@ ARCHS = {  # case -> (arch, algorithm)
     "qwen2-7b": ("qwen2-7b", "soft_prompt"),        # GQA groups, qkv_bias, untied
     "gpt2-base-prefix": ("gpt2-base", "prefix"),
     "deepseek-v2-236b": ("deepseek-v2-236b", "soft_prompt"),   # MLA, MoE aux loss
+    "rwkv6-7b": ("rwkv6-7b", "soft_prompt"),        # WKV through RWKV6WKV's backward
 }
 _PAIRS = {}
 
@@ -120,7 +122,7 @@ def pair(arch):
     """(jax model, jax params, port model) with the same numpy weights."""
     if arch not in _PAIRS:
         jmodel = build_model(jax_smoke_config(arch))
-        tree = numpy_params(jmodel, seed=7)
+        tree = (rwkv_numpy_params if arch == "rwkv6-7b" else numpy_params)(jmodel, seed=7)
         model = Model(smoke_config(arch), device="cpu")
         model.load_state_dict(params_from_jax(tree))
         _PAIRS[arch] = (jmodel, jax.tree.map(jnp.asarray, tree), model)
@@ -172,7 +174,7 @@ def test_step_loss_and_grad_match_jax_value_and_grad(case):
 # update differences near 2e-3 of the norm after ten steps (1.5e-5 on the
 # loss). The plain soft prompt tracks to a few 1e-6.
 TRAJECTORY_TOL = {"gpt2-base": (GRAD_TOL, 10 * LOSS_TOL), "qwen2-7b": (GRAD_TOL, 10 * LOSS_TOL),
-                  "gpt2-base-prefix": (1e-2, 1e-4)}
+                  "gpt2-base-prefix": (1e-2, 1e-4), "rwkv6-7b": (GRAD_TOL, 10 * LOSS_TOL)}
 
 
 @pytest.mark.parametrize("case", sorted(TRAJECTORY_TOL))
