@@ -99,10 +99,11 @@ Phases, in order; any failure ends the run with a non-zero exit:
    microbatch's prompt gradient in bf16 against f32 on a 4-layer cut; (e)
    run inside phase 7, on its rwkv6-7b before that model is freed:
    rwkv6_wkv_bwd against its plain version in bf16 and f32 (B*H = 1 and the
-   tuning shape 8 x 64, T = 1, 15, 16, 17, 33 and 529, with and without a
-   start state and dS_T, the model's decays, none and steep ones, rows not
-   16 bytes apart), each twice and bitwise equal, its kernels all its own,
-   and its times beside the plain version and the bound; ten Adam steps of a
+   tuning shape 8 x 64, T = 1, 15, 16, 17, 31, 32, 33 and 529, with and
+   without a start state and dS_T, the model's decays, none, steep ones,
+   steep in half the channels and ones just inside the bf16 kernel's guard,
+   rows not 16 bytes apart), each twice and bitwise equal, its kernels all
+   its own, and its times beside the plain version and the bound; ten Adam steps of a
    2-layer f32 cut, card against CPU; PromptTuner.tune at full width for 10
    iterations at TuneConfig's defaults, every iteration finite and
    rwkv6_wkv_bwd launched 32 times a step, its peak memory and one step
@@ -146,6 +147,7 @@ ROOT = Path(__file__).resolve().parent
 # H100 SXM published dense peaks (NVIDIA data sheet) at the 700 W limit.
 PEAK_BF16_FLOPS = 989e12
 PEAK_F32_FLOPS = 67e12       # f32 on the CUDA cores, outside the tensor cores
+PEAK_TF32_FLOPS = 495e12     # TF32 on the tensor cores
 PEAK_BYTES = 3.35e12
 
 TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}   # tolerances of tests/test_kernels.py
@@ -1209,12 +1211,15 @@ def phase_rwkv(dev: torch.device, seed: int) -> dict:
 
 
 # The rwkv6_wkv backward's checks (phase 9e): B, H, T, decay, start state,
-# dS_T. B·H = 1 and the tuning shape (8 rows of 64 heads); T around the
-# kernel's 8-token checkpoint interval and the forward's 16-token sub-chunk,
-# and 529 (a 513-token lookup's tokens and 16 prompt positions). Decays as
+# dS_T. B·H = 1 and the tuning shape (8 rows of 64 heads); T around the f32
+# kernel's 8-token interval and the bf16 kernel's 16-token sub-chunk, and
+# 529 (a 513-token lookup's tokens and 16 prompt positions). Decays as
 # phase 2 draws them, but "steep" (logw = -e^4, w about 1e-24) on every
 # other step only, so that the state and its gradient span many orders of
-# magnitude instead of being reset every step.
+# magnitude instead of being reset every step; "mixed" is steep in every
+# step of half the channels (past the bf16 kernel's guard: its scores go
+# element by element) and "edge" is logw = -3.7 throughout (a sub-chunk's
+# decay e^-59.2, just inside the guard: factors up to e^59).
 WKV_BWD_CASES = [
     (8, 64, 33, "drawn", False, False),         # the tuning path's call
     (8, 64, 33, "drawn", True, True), (8, 64, 529, "drawn", True, True),
@@ -1224,6 +1229,9 @@ WKV_BWD_CASES = [
     (8, 64, 15, "steep", False, False), (8, 64, 16, "drawn", False, True),
     (8, 64, 17, "none", True, True), (8, 64, 33, "steep", True, True),
     (8, 64, 529, "steep", False, True),
+    (8, 64, 31, "drawn", True, True), (8, 64, 32, "edge", False, True),
+    (8, 64, 33, "mixed", True, True), (1, 1, 32, "mixed", True, False),
+    (1, 1, 31, "edge", False, False), (8, 64, 529, "mixed", True, True),
 ]
 WKV_GRADS = ("dr", "dk", "dv", "dlogw", "du", "dS0")
 
@@ -1253,6 +1261,10 @@ def wkv_bwd_inputs(gen, dev, B: int, H: int, T: int, decay: str, with_state: boo
     logw = view(torch.float32, torch.zeros_like if decay == "none" else drawn)
     if decay == "steep":
         logw[:, :, ::2] = -float(np.exp(4.0))
+    elif decay == "mixed":
+        logw[..., ::2] = -float(np.exp(4.0))
+    elif decay == "edge":
+        logw.fill_(-3.7)
     u = 0.5 * torch.randn(H, hd, generator=gen, device=dev)
     s0 = 0.5 * torch.randn(B, H, hd, hd, generator=gen, device=dev) if with_state else None
     dy = view(torch.float32)
@@ -1263,11 +1275,13 @@ def wkv_bwd_inputs(gen, dev, B: int, H: int, T: int, decay: str, with_state: boo
 def wkv_bwd_bound(B: int, H: int, T: int, hd: int, elt: int):
     """Least time of one rwkv6_wkv_bwd call without the end states: r, k, v
     (elt bytes), logw and dy (f32) read once, dr, dk, dv (elt) and dlogw
-    (f32) written once, u and du; 12·hd² f32 operations per token and head
-    (dr, dk, dv, dlogw, the G update and the forward state again) on the
-    CUDA cores."""
+    (f32) written once, u and du; 12·hd² operations per token and head (dr,
+    dk, dv, dlogw, the G update and the forward state again) at the TF32
+    tensor-core peak, where the bf16 kernel runs them. Returns (ms, "bytes"
+    or "operations", the operations' time on the CUDA cores in ms)."""
     nbytes = B * H * T * hd * (6 * elt + 3 * 4) + 2 * H * hd * 4
-    return bound(12.0 * B * H * T * hd * hd, nbytes, PEAK_F32_FLOPS)
+    flops = 12.0 * B * H * T * hd * hd
+    return (*bound(flops, nbytes, PEAK_TF32_FLOPS), flops / PEAK_F32_FLOPS * 1e3)
 
 
 def phase_rwkv_tune(model, seed: int) -> dict:
@@ -1311,7 +1325,7 @@ def phase_rwkv_tune(model, seed: int) -> dict:
         r, k, v, logw, u, _, dy, _ = wkv_bwd_inputs(gen, dev, 8, 64, T, "drawn", False, False,
                                                     torch.bfloat16)
         call = lambda: rwkv6_wkv_bwd(r, k, v, logw, u, None, dy, None, need_du=False)
-        b_ms, b_by = wkv_bwd_bound(8, 64, T, 64, 2)
+        b_ms, b_by, cuda_core_ms = wkv_bwd_bound(8, 64, T, 64, 2)
         rows.append({"shape": f"B=8 H=64 T={T} hd=64 bf16 r/k/v, zero start state, no dS_T",
                      "ms": time_ms(call),
                      "plain_ms": time_ms(lambda: rwkv6_wkv_bwd_plain(r, k, v, logw, u, None, dy),
@@ -1319,7 +1333,8 @@ def phase_rwkv_tune(model, seed: int) -> dict:
                      "library_ms": None, "bound_ms": b_ms, "bound_by": b_by})
         print(f"[9e] rwkv6_wkv_bwd {rows[-1]['shape']}: kernel {rows[-1]['ms']:.4f} ms, plain "
               f"{rows[-1]['plain_ms']:.4f} ms, library: none (no single PyTorch call computes "
-              f"WKV's backward), bound {b_ms:.4f} ms ({b_by})")
+              f"WKV's backward), bound {b_ms:.4f} ms ({b_by}; the operations on the CUDA cores "
+              f"would take {cuda_core_ms:.4f} ms)")
         own_kernels("rwkv6_wkv_bwd", kernel_launches(f"[9e] rwkv6_wkv_bwd T={T}", call))
         del r, k, v, logw, dy
     free_card()
@@ -1799,7 +1814,7 @@ PORT_BWD_KERNELS = {"flash_attention_bwd": ("fa_bwd_prep", "fa_bwd_bf16", "fa_bw
                     "score_ce_bwd": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum"),
                     "score_ce_de": ("score_ce_bwd_bf16", "score_ce_ge_bf16", "score_ce_ge_sum",
                                     "score_ce_de_bf16"),
-                    "rwkv6_wkv_bwd": ("rwkv6_wkv_bwd_kernel", "rwkv6_wkv_bwd_du")}
+                    "rwkv6_wkv_bwd": ("rwkv6_wkv_bwd_chunked", "rwkv6_wkv_bwd_du")}
 
 
 def check_bwd(name: str, out: torch.Tensor, ref: torch.Tensor, dtype) -> float:

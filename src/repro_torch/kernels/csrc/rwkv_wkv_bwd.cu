@@ -13,42 +13,93 @@
 //     dlogw_t[i] = w_t[i] sum_j G_t[i][j] P_t[i][j]
 //     du[i]     += r_t[i] k_t[i] (v_t · dy_t)
 //     G_{t-1}    = diag(w_t) G_t + r_t dy_tᵀ,          dS_0 = G_{-1}
-// dlogw is formed from the state itself, never from a difference of
-// cumulative sums, and P_t is never recovered by dividing by w (a step of
-// logw = -55 underflows w): the kernel walks forward from state0 first,
-// keeping P at every 8-token boundary in a scratch buffer (B·H·ceil(T/8)
-// states of 16 KB), then, sub-chunk by sub-chunk backward, recomputes the
-// sub-chunk's 8 states from its boundary into registers. Recomputing costs
-// one more pass of the forward recurrence; keeping every state instead
-// would cost 16 KB a token and head of device memory (0.27 GB a layer at
-// the tuning shape) and as many bytes moved twice.
+// dlogw is formed as a sum of products, never from a difference of
+// cumulative sums, and no state is recovered by dividing by w (a step of
+// logw = -55 underflows w): both kernels walk forward from state0 first,
+// keeping the state at sub-chunk boundaries in a scratch buffer, then walk
+// back sub-chunk by sub-chunk.
 //
-// What bounds it on the H100: the f32 operations, about 12·hd² per token
-// and head (dr, dk, dv, dlogw, the G update and the forward state again:
-// 0.83 GFLOP at B = 8, H = 64, T = 33, 12 µs at the CUDA cores' 67
-// TFLOP/s, against 26 MB of inputs and gradients, 8 µs at 3.35 TB/s).
-// This first kernel is sequential in time and runs on the CUDA cores; its
-// time is set by that sequence (a few hundred dependent instructions and
-// barriers a token). The chunked form on the tensor cores, as the bf16
-// forward has, is later work.
+// What bounds it on the H100: bytes. r, k, v read and dr, dk, dv written
+// in bf16, logw and dy read and dlogw written in f32: 24 bytes per (token,
+// head, channel), 26 MB at B = 8, H = 64, T = 33 (7.8 µs at 3.35 TB/s);
+// the 12·hd² operations per token and head take 1.7 µs at the TF32 tensor
+// cores' 495 TFLOP/s (three times that with the split products below), but
+// 12 µs on the CUDA cores' 67 TFLOP/s, where the f32 kernel runs them.
 //
-// One block of 256 threads per (batch, head): thread (i, q) = (tid / 4,
-// tid % 4) owns row i of the state and of G, columns [16q, 16q + 16), in
-// registers. So the sums over j (dr, dk, dlogw) are 16 FMAs and two lane
-// shuffles, the G and P updates are local, and dv, a sum over i, is reduced
-// over a warp's 8 rows by a reduce-scatter of shuffles and over the 8
-// warps through shared memory in a fixed order. Every sum has a fixed
-// order, so two calls give the same bits. Per 8-token sub-chunk the block
-// stages r, k, v, w and dy in shared memory (rows past T as k = v = dy = 0,
-// w = 1) and one warp a token forms v · dy and sum_i r u k. du is kept per
-// (batch, head) and summed over the batch in order by a second small
-// kernel. r, k, v (f32 or bf16), logw, dy and the gradients are read and
-// written in place through their (b, h, t) strides, hd contiguous; dr, dk
-// and dv are stored in r's type, dlogw, du and dS_0 in f32.
+// bf16 r/k/v: the chunked form on the tensor cores (mma.sync m16n8k8 TF32),
+// in sub-chunks of C = 16 tokens, as the forward's. With b_t = sum_{m<t}
+// logw_m and c_t = b_t + logw_t from the sub-chunk's start, S_in the state
+// entering it, G_out = dL/dS where it ends, R̃ = r ⊙ e^{b}, K̃ = k ⊙ e^{c_15 - c}
+// (both at most |r|, |k|), A the forward's scores and dA[t][s] = dy_t · v_s:
+//   G_in  = diag(e^{c_15}) G_out + R̃ᵀ · dY                 64×16 · 16×64
+//   dv    = K̃ · G_out + Aᵀ · dY                            16×64 · 64×64
+//   dr_t  = e^{b_t} ⊙ (S_in dy_t) + sum_{s<t} dA[t][s] e^{b_t - c_s} ⊙ k_s
+//           + dA[t][t] u ⊙ k_t
+//   dk_s  = e^{c_15 - c_s} ⊙ (G_out v_s) + sum_{t>s} dA[t][s] e^{b_t - c_s} ⊙ r_t
+//           + dA[s][s] u ⊙ r_s
+//   dlogw_m = sum_{t>m} r_t ⊙ (e^{b_t} ⊙ (S_in dy_t) + sum_{s<m} dA[t][s] e^{b_t - c_s} ⊙ k_s)
+//           + sum_{s<m} k_s ⊙ e^{c_15 - c_s} ⊙ (G_out v_s) + e^{c_15} sum_j G_out ⊙ S_in
+//   du    = sum_t dA[t][t] r_t ⊙ k_t
+// The 64-deep products (dA, A, S_in dY, G_out V, dv, the G update, and the
+// forward's state update that fills the boundary states) run on the tensor
+// cores with f32 operands split in two TF32 halves, x = hi + lo: three
+// products where both sides are f32, two where one is bf16 (exact in TF32),
+// each within about 2^-20 of an f32 product, as in the forward. The terms
+// within a sub-chunk (the sums over s < t above) run element by element
+// per channel, every decay factor a running product of w: they cost 16·C/2
+// operations a token and channel against the products' 64·12, and they give
+// dlogw's pair terms, which no single product forms. A, needed whole for
+// dv, is the factored product (r ⊙ e^{b - c_15}) · K̃ᵀ while e^{-c_15} <=
+// e^{60} in every channel (the forward's guard: factors and dropped entries
+// stay inside f32), else element by element, as the forward does.
+//
+// One block of 4 warps per (batch, head); the state entering each sub-chunk
+// is kept in scratch, B·H·ceil(T/16) states of 16 KB (slot 0 unused: the
+// start state is read in place). G lives in shared memory (53.6 KB a block
+// in all: four blocks, 16 warps, an SM; 128 registers a thread). Per
+// sub-chunk, from the last:
+//   (1) dy and v copied in, then r, k and logw (cp.async, two groups; rows
+//       past T zero: w = 1);
+//   (2) once dy and v are in, every warp, channels [16w, 16w + 16):
+//       dY · S_inᵀ, V · G_outᵀ and sum_j G_out ⊙ S_in, while the second
+//       group is in flight;
+//   (3) warps 0-1, a thread per channel: w, e^{b}, e^{c_15 - c}, e^{c_15},
+//       R̃, K̃ and the guard; warps 2-3: dA (tensor cores) and A's diagonal;
+//   (4) A (warps 0-1 on the tensor cores, or every thread element by
+//       element past the guard);
+//   (5) warps 0-1, a thread per channel: the terms within the sub-chunk and
+//       dr, dk, dlogw, du; at the same time warps 2-3, 32 value columns
+//       each: dv (its A part after a named barrier with warps 0-1), then G
+//       updated in place.
+// Every sum has a fixed order and there are no atomics: two calls give the
+// same bits. du is kept per (batch, head) and summed over the batch in order
+// by a second small kernel.
+//
+// f32 r/k/v keep the sequential kernel: one block of 256 threads per (batch,
+// head), thread (i, q) = (tid / 4, tid % 4) owning row i of the state and
+// of G, columns [16q, 16q + 16), in registers; the state kept every kL = 8
+// tokens (B·H·ceil(T/8) states of scratch) and each 8-token sub-chunk's
+// states recomputed into registers on the way back. So the sums over j
+// (dr, dk, dlogw) are 16 FMAs and two lane shuffles, the G and P updates
+// are local, and dv, a sum over i, is reduced over a warp's 8 rows by a
+// reduce-scatter of shuffles and over the 8 warps through shared memory in
+// a fixed order. Per 8-token sub-chunk the block stages r, k, v, w and dy
+// in shared memory (rows past T as k = v = dy = 0, w = 1) and one warp a
+// token forms v · dy and sum_i r u k. That kernel is sequential in time on
+// the CUDA cores. Instantiated for bf16 it is the kernel the chunked one
+// replaced; tools/wkv_bwd_variants.py builds it so and times the two.
+//
+// r, k, v, logw, dy and the gradients are read and written in place
+// through their (b, h, t) strides, hd contiguous; dr, dk and dv are stored
+// in r's type, dlogw, du and dS_0 in f32.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include "warp_tile.cuh"
+
+using namespace repro_torch;
 
 namespace {
 
@@ -274,14 +325,597 @@ __global__ void rwkv6_wkv_bwd_du(const float* __restrict__ du_part, float* __res
   du[h * HD + i] = s;
 }
 
+// -- bf16: the chunked form on the tensor cores ----------------------------------------
+
+constexpr int kSub = 16;              // tokens per sub-chunk, as the forward's
+constexpr int kCThreads = 128;        // 4 warps
+constexpr int kLdB = 72;              // bf16 rows of r, k, v: 144 bytes keep fragment loads apart
+constexpr int kLdA = 20;              // rows of A and dA: Aᵀ fragment loads on distinct banks
+constexpr float kMinDecay = 8.75651076e-27f;   // e^{-60}: the forward's guard (rwkv_wkv.cu)
+
+// [rows][64] f32 tiles in shared memory, rows padded to 68 words: scalar
+// fragment loads (row 8n + 2·t4 + e, column c + g) hit distinct banks,
+// float2 pairs (row g or g + 8, column 8m + 2·t4) two ways. The addresses
+// stay affine in the unrolled indices and fold into the loads' offsets (an
+// XOR swizzle without padding needs registers for them, spills and is
+// slower: tools/wkv_bwd_variants.py times it).
+constexpr int kLd = 68;
+__device__ __forceinline__ int at(int row, int col) { return row * kLd + col; }
+
+struct ChunkSmem {
+  float g[HD * kLd];       // G = dL/dS where the sub-chunk ends, [i][j]
+  float dy[kSub * kLd];    // dy, [t][j]
+  float rt[kSub * kLd];    // r ⊙ e^{b}, [t][i]
+  float kt[kSub * kLd];    // k ⊙ e^{c_15 - c}, [s][i]
+  float dri[kSub * kLd];   // dY · S_inᵀ, [t][i]
+  float dki[kSub * kLd];   // V · G_outᵀ, [s][i]
+  float w[kSub][HD];       // logw, overwritten by w = e^{logw}
+  __nv_bfloat16 r[kSub][kLdB], k[kSub][kLdB], v[kSub][kLdB];
+  float am[kSub][kLdA];    // A[t][s] for s <= t (the bonus on the diagonal), 0 above
+  float da[kSub][kLdA];    // dA[t][s] = dy_t · v_s
+  float ec[HD];            // e^{c_15}
+  float einv[HD];          // e^{-c_15} where the guard holds, else 1
+  float gs[HD];            // sum_j G_out[i][j] S_in[i][j]
+  float diag[kSub];        // A[t][t] = sum_i r_t[i] u[i] k_t[i]
+};
+// 53.6 KB: four blocks fit an SM's 228 KB (1 KB of each block is the system's)
+static_assert(4 * (sizeof(ChunkSmem) + 1024) <= 228 * 1024, "four blocks an SM");
+
+__device__ __forceinline__ void split_tf32(float x, uint32_t& hi, uint32_t& lo) {
+  hi = __float_as_uint(x) & 0xffffe000u;
+  lo = __float_as_uint(x - __uint_as_float(hi));
+}
+
+__device__ __forceinline__ void mma_tf32(float (&c)[4], uint32_t a0, uint32_t a1, uint32_t a2,
+                                         uint32_t a3, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+}
+
+// c += a · b on m16n8k8, fragments as f32 values: a = {A[g][k0], A[g+8][k0],
+// A[g][k1], A[g+8][k1]}, b = {B[k0][g], B[k1][g]}. mma3 splits both sides
+// (lo·hi + hi·lo + hi·hi), mma2a splits a (b exact in TF32: bf16 values),
+// mma2b splits b.
+__device__ __forceinline__ void mma3(float (&c)[4], const float (&a)[4], float b0, float b1) {
+  uint32_t ah[4], al[4], bh[2], bl[2];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  mma_tf32(c, al[0], al[1], al[2], al[3], bh[0], bh[1]);
+  mma_tf32(c, ah[0], ah[1], ah[2], ah[3], bl[0], bl[1]);
+  mma_tf32(c, ah[0], ah[1], ah[2], ah[3], bh[0], bh[1]);
+}
+__device__ __forceinline__ void mma2a(float (&c)[4], const float (&a)[4], float b0, float b1) {
+  uint32_t ah[4], al[4];
+#pragma unroll
+  for (int e = 0; e < 4; ++e) split_tf32(a[e], ah[e], al[e]);
+  mma_tf32(c, al[0], al[1], al[2], al[3], __float_as_uint(b0), __float_as_uint(b1));
+  mma_tf32(c, ah[0], ah[1], ah[2], ah[3], __float_as_uint(b0), __float_as_uint(b1));
+}
+__device__ __forceinline__ void mma2b(float (&c)[4], const float (&a)[4], float b0, float b1) {
+  uint32_t bh[2], bl[2];
+  split_tf32(b0, bh[0], bl[0]);
+  split_tf32(b1, bh[1], bl[1]);
+  const uint32_t a0 = __float_as_uint(a[0]), a1 = __float_as_uint(a[1]),
+                 a2 = __float_as_uint(a[2]), a3 = __float_as_uint(a[3]);
+  mma_tf32(c, a0, a1, a2, a3, bl[0], bl[1]);
+  mma_tf32(c, a0, a1, a2, a3, bh[0], bh[1]);
+}
+
+__device__ __forceinline__ float2 bf2_at(const __nv_bfloat16* p) {   // two bf16 as f32
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
+__device__ __forceinline__ float bf_lo(uint32_t x) { return __uint_as_float(x << 16); }
+__device__ __forceinline__ float bf_hi(uint32_t x) { return __uint_as_float(x & 0xffff0000u); }
+
+enum : int { kCopyK = 1, kCopyV = 2, kCopyR = 4, kCopyW = 8, kCopyDy = 16 };
+
+// Starts the copies of sub-chunk [t0, t0 + 16) of the arrays in `what`
+// into shared memory, 16 bytes a copy, rows past T zero (logw = 0, so
+// w = 1), and commits them as one group; with `vec` false (a stride not a
+// multiple of 16 bytes) copies element by element instead. cp_async_wait
+// and a barrier make them visible to the block.
+__device__ __forceinline__ void copy_chunk(ChunkSmem& sm, int what, const __nv_bfloat16* rb,
+                                           const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                           const float* wb, const float* dyb, Strides sr,
+                                           Strides sk, Strides sv, Strides sw, Strides sdy,
+                                           int t0, int T, bool vec) {
+  const int tid = threadIdx.x;
+  {  // bf16: 16 rows × 8 copies each
+    const int row = tid >> 3, c = (tid & 7) * 8;
+    const bool live = t0 + row < T;
+    const long long t = live ? t0 + row : 0;
+    const __nv_bfloat16* src[3] = {kb + t * sk.t + c, vb + t * sv.t + c, rb + t * sr.t + c};
+    __nv_bfloat16* dst[3] = {&sm.k[row][c], &sm.v[row][c], &sm.r[row][c]};
+    const int bit[3] = {kCopyK, kCopyV, kCopyR};
+#pragma unroll
+    for (int a = 0; a < 3; ++a) {
+      if (!(what & bit[a])) continue;
+      if (vec) {
+        cp_async_16(dst[a], src[a], live ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 8; ++e) dst[a][e] = live ? src[a][e] : __float2bfloat16(0.f);
+      }
+    }
+  }
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {   // f32: 16 rows × 16 copies each
+    const int idx = tid + half * kCThreads, row = idx >> 4, c = (idx & 15) * 4;
+    const bool live = t0 + row < T;
+    const long long t = live ? t0 + row : 0;
+    const float* src[2] = {wb + t * sw.t + c, dyb + t * sdy.t + c};
+    float* dst[2] = {&sm.w[row][c], &sm.dy[at(row, c)]};
+    const int bit[2] = {kCopyW, kCopyDy};
+#pragma unroll
+    for (int a = 0; a < 2; ++a) {
+      if (!(what & bit[a])) continue;
+      if (vec) {
+        cp_async_16(dst[a], src[a], live ? 16 : 0);
+      } else {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dst[a][e] = live ? src[a][e] : 0.f;
+      }
+    }
+  }
+  cp_async_commit();
+}
+
+__global__ void __launch_bounds__(kCThreads, 4)
+rwkv6_wkv_bwd_chunked(const __nv_bfloat16* __restrict__ r, const __nv_bfloat16* __restrict__ k,
+                      const __nv_bfloat16* __restrict__ v, const float* __restrict__ logw,
+                      const float* __restrict__ u, const float* __restrict__ s0,
+                      const float* __restrict__ dy, const float* __restrict__ ds_t,
+                      __nv_bfloat16* __restrict__ dr, __nv_bfloat16* __restrict__ dk,
+                      __nv_bfloat16* __restrict__ dv, float* __restrict__ dlogw,
+                      float* __restrict__ du_part, float* __restrict__ ds0,
+                      float* __restrict__ ckpt, Strides sr, Strides sk, Strides sv, Strides sw,
+                      Strides sdy, Strides sdr, Strides sdk, Strides sdv, Strides sdw, int H,
+                      int T, bool vec) {
+  extern __shared__ __align__(16) uint8_t smem_raw[];
+  ChunkSmem& sm = *reinterpret_cast<ChunkSmem*>(smem_raw);
+  const int bh = blockIdx.x, b = bh / H, h = bh % H;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31, g = lane >> 2, t4 = lane & 3;
+  const __nv_bfloat16* rb = r + b * sr.b + h * sr.h;
+  const __nv_bfloat16* kb = k + b * sk.b + h * sk.h;
+  const __nv_bfloat16* vb = v + b * sv.b + h * sv.h;
+  const float* wb = logw + b * sw.b + h * sw.h;
+  const float* dyb = dy + b * sdy.b + h * sdy.h;
+  const float* ub = u + h * HD;
+  const int n_sub = (T + kSub - 1) / kSub;
+  const long long sbase = (long long)bh * HD * HD;
+  float* ck = ckpt + (long long)bh * n_sub * HD * HD;   // slot sc: the state entering sub-chunk sc
+
+  // -- forward: the state entering each sub-chunk, kept in slots 1 .. n_sub - 1 --------
+  // Warp w holds Sᵀ's rows j in [16w, 16w + 16) in the accumulator layout of
+  // m16n8: st[n][e] = S[i][j], j = 16w + g + 8·(e >> 1), i = 8n + 2·t4 + (e & 1).
+  if (n_sub > 1) {
+    const int col0 = 16 * warp;
+    float st[8][4];
+#pragma unroll
+    for (int n = 0; n < 8; ++n)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int i = 8 * n + 2 * t4 + (e & 1), j = col0 + g + 8 * (e >> 1);
+        st[n][e] = s0 ? s0[sbase + i * HD + j] : 0.f;
+      }
+    for (int sc = 0; sc + 1 < n_sub; ++sc) {
+      copy_chunk(sm, kCopyK | kCopyV | kCopyW, rb, kb, vb, wb, dyb, sr, sk, sv, sw, sdy,
+                 sc * kSub, T, vec);
+      cp_async_wait<0>();
+      __syncthreads();
+      if (tid < HD) {   // one thread per channel: e^{c_15 - c_t} and e^{c_15}, running products
+        const int ch = tid;
+        float wv[kSub], run = 1.f;
+#pragma unroll
+        for (int t = 0; t < kSub; ++t) {
+          wv[t] = expf(sm.w[t][ch]);
+          run *= wv[t];
+        }
+        sm.ec[ch] = run;
+        run = 1.f;
+#pragma unroll
+        for (int t = kSub - 1; t >= 0; --t) {
+          sm.kt[at(t, ch)] = __bfloat162float(sm.k[t][ch]) * run;
+          run *= wv[t];
+        }
+      }
+      __syncthreads();
+      // Sᵀ = Sᵀ · diag(e^{c_15}) + Vᵀ · (k ⊙ e^{c_15 - c}); v exact in TF32
+      float va[2][4];
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int s = 8 * kk + 2 * t4;
+        va[kk][0] = __bfloat162float(sm.v[s][col0 + g]);
+        va[kk][1] = __bfloat162float(sm.v[s][col0 + g + 8]);
+        va[kk][2] = __bfloat162float(sm.v[s + 1][col0 + g]);
+        va[kk][3] = __bfloat162float(sm.v[s + 1][col0 + g + 8]);
+      }
+#pragma unroll
+      for (int n = 0; n < 8; ++n) {
+        float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int s = 8 * kk + 2 * t4, i = 8 * n + g;
+          mma2b(p, va[kk], sm.kt[at(s, i)], sm.kt[at(s + 1, i)]);
+        }
+        const float2 ec = *reinterpret_cast<const float2*>(&sm.ec[8 * n + 2 * t4]);
+        st[n][0] = fmaf(ec.x, st[n][0], p[0]);
+        st[n][1] = fmaf(ec.y, st[n][1], p[1]);
+        st[n][2] = fmaf(ec.x, st[n][2], p[2]);
+        st[n][3] = fmaf(ec.y, st[n][3], p[3]);
+      }
+      float* dst = ck + (long long)(sc + 1) * HD * HD;
+#pragma unroll
+      for (int n = 0; n < 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e)
+          dst[(8 * n + 2 * t4 + (e & 1)) * HD + col0 + g + 8 * (e >> 1)] = st[n][e];
+      __syncthreads();   // the stage is read; the next load may overwrite it
+    }
+  }
+
+  // -- backward: G from dS_T, sub-chunk by sub-chunk ------------------------------------
+  for (int idx = tid; idx < HD * HD / 4; idx += kCThreads) {
+    const int i = idx / (HD / 4), c = (idx % (HD / 4)) * 4;
+    const float4 x = ds_t ? *reinterpret_cast<const float4*>(ds_t + sbase + i * HD + c)
+                          : make_float4(0.f, 0.f, 0.f, 0.f);
+    *reinterpret_cast<float4*>(&sm.g[at(i, c)]) = x;
+  }
+  float du = 0.f;   // the channel thread's du over the whole sequence
+  for (int sc = n_sub - 1; sc >= 0; --sc) {
+    const int t0 = sc * kSub;
+    // (1) dy and v copied in, then r, k and logw: two groups, so that (2)
+    // runs while the second is in flight
+    copy_chunk(sm, kCopyDy | kCopyV, rb, kb, vb, wb, dyb, sr, sk, sv, sw, sdy, t0, T, vec);
+    copy_chunk(sm, kCopyR | kCopyK | kCopyW, rb, kb, vb, wb, dyb, sr, sk, sv, sw, sdy, t0, T,
+               vec);
+    cp_async_wait<1>();
+    __syncthreads();   // dy and v are in; the previous sub-chunk's G_in is in place
+
+    // (2) every warp, channels i in [16w, 16w + 16): dY · S_inᵀ (S_in read
+    // from the slot, or the start state), V · G_outᵀ (v exact) and
+    // sum_j G_out ⊙ S_in, the last summed over a row's 4 lanes in order.
+    {
+      const float* sinp = sc > 0 ? ck + (long long)sc * HD * HD : (s0 ? s0 + sbase : nullptr);
+      float dri[2][4], dki[2][4], gsum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int n = 0; n < 2; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) dri[n][e] = dki[n][e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int j = 8 * m + 2 * t4;
+        const float2 y0 = *reinterpret_cast<const float2*>(&sm.dy[at(g, j)]);
+        const float2 y1 = *reinterpret_cast<const float2*>(&sm.dy[at(g + 8, j)]);
+        const float ay[4] = {y0.x, y1.x, y0.y, y1.y};
+        const float2 v0 = bf2_at(&sm.v[g][j]), v1 = bf2_at(&sm.v[g + 8][j]);
+        const float av[4] = {v0.x, v1.x, v0.y, v1.y};
+#pragma unroll
+        for (int n = 0; n < 2; ++n) {
+          const int i = 16 * warp + 8 * n + g;
+          const float2 sv2 = sinp ? *reinterpret_cast<const float2*>(sinp + i * HD + j)
+                                 : make_float2(0.f, 0.f);
+          const float2 gv = *reinterpret_cast<const float2*>(&sm.g[at(i, j)]);
+          mma3(dri[n], ay, sv2.x, sv2.y);
+          mma2b(dki[n], av, gv.x, gv.y);
+          gsum[n] = fmaf(gv.y, sv2.y, fmaf(gv.x, sv2.x, gsum[n]));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < 2; ++n) {
+        const float x = quad_sum(gsum[n]);
+        if (t4 == 0) sm.gs[16 * warp + 8 * n + g] = x;
+        const int i = 16 * warp + 8 * n + 2 * t4;
+        *reinterpret_cast<float2*>(&sm.dri[at(g, i)]) = make_float2(dri[n][0], dri[n][1]);
+        *reinterpret_cast<float2*>(&sm.dri[at(g + 8, i)]) = make_float2(dri[n][2], dri[n][3]);
+        *reinterpret_cast<float2*>(&sm.dki[at(g, i)]) = make_float2(dki[n][0], dki[n][1]);
+        *reinterpret_cast<float2*>(&sm.dki[at(g + 8, i)]) = make_float2(dki[n][2], dki[n][3]);
+      }
+    }
+    cp_async_wait<0>();
+    __syncthreads();   // r, k and logw are in; the products of (2) too
+
+    // (3) warps 0-1, a thread per channel: w and the decay factors as running
+    // products, r ⊙ e^{b}, k ⊙ e^{c_15 - c}, e^{c_15} and the guard.
+    // Warps 2-3: dA = dY · Vᵀ (one 8-key tile each; v exact) and A's diagonal.
+    bool unsafe = false;
+    if (tid < HD) {
+      const int ch = tid;
+      float wv[kSub], run = 1.f;
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        wv[t] = expf(sm.w[t][ch]);
+        sm.w[t][ch] = wv[t];
+        sm.rt[at(t, ch)] = __bfloat162float(sm.r[t][ch]) * run;
+        run *= wv[t];
+      }
+      const float ec = run;
+      run = 1.f;
+#pragma unroll
+      for (int t = kSub - 1; t >= 0; --t) {
+        sm.kt[at(t, ch)] = __bfloat162float(sm.k[t][ch]) * run;
+        run *= wv[t];
+      }
+      unsafe = !(ec >= kMinDecay);
+      sm.ec[ch] = ec;
+      sm.einv[ch] = unsafe ? 1.f : 1.f / ec;
+    } else {
+      const int nt = warp - 2;   // keys [8nt, 8nt + 8)
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int j = 8 * m + 2 * t4;
+        const float2 y0 = *reinterpret_cast<const float2*>(&sm.dy[at(g, j)]);
+        const float2 y1 = *reinterpret_cast<const float2*>(&sm.dy[at(g + 8, j)]);
+        const float a[4] = {y0.x, y1.x, y0.y, y1.y};
+        const float2 vv = bf2_at(&sm.v[8 * nt + g][j]);
+        mma2a(c, a, vv.x, vv.y);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) sm.da[g + 8 * (e >> 1)][8 * nt + 2 * t4 + (e & 1)] = c[e];
+      const int x = tid - HD, t = x >> 2, q = x & 3;   // A[t][t] over channels [16q, 16q + 16)
+      float d = 0.f;
+#pragma unroll
+      for (int c2 = 0; c2 < 16; ++c2) {
+        const int i = 16 * q + c2;
+        d = fmaf(__bfloat162float(sm.r[t][i]) * ub[i], __bfloat162float(sm.k[t][i]), d);
+      }
+      d += __shfl_xor_sync(0xffffffffu, d, 1);
+      d += __shfl_xor_sync(0xffffffffu, d, 2);
+      if (q == 0) sm.diag[t] = d;
+    }
+    const bool steep = __syncthreads_or(unsafe);
+
+    // (4) A, the forward's scores. Inside the guard warps 0-1 form the
+    // factored product (r ⊙ e^{b - c_15}) · (k ⊙ e^{c_15 - c})ᵀ, one 8-key
+    // tile each; past it every thread builds A element by element, a thread
+    // per (key s, 8 channels), as the forward does.
+    if (steep) {
+      const int ks = tid >> 3, dg = (tid & 7) * 8;
+      float kk[8], part[kSub];
+      {
+        const uint4 kr = *reinterpret_cast<const uint4*>(&sm.k[ks][dg]);
+        const uint32_t kw[4] = {kr.x, kr.y, kr.z, kr.w};
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          kk[2 * e] = bf_lo(kw[e]);
+          kk[2 * e + 1] = bf_hi(kw[e]);
+        }
+      }
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        const uint4 rr = *reinterpret_cast<const uint4*>(&sm.r[t][dg]);
+        const uint32_t rw[4] = {rr.x, rr.y, rr.z, rr.w};
+        float rt[8];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          rt[2 * e] = bf_lo(rw[e]);
+          rt[2 * e + 1] = bf_hi(rw[e]);
+        }
+        if (t >= 2 && t >= ks + 2) {   // kk = k_s · prod_{s<m<t} w_m
+          const float4 w0 = *reinterpret_cast<const float4*>(&sm.w[t - 1][dg]);
+          const float4 w1 = *reinterpret_cast<const float4*>(&sm.w[t - 1][dg + 4]);
+          kk[0] *= w0.x; kk[1] *= w0.y; kk[2] *= w0.z; kk[3] *= w0.w;
+          kk[4] *= w1.x; kk[5] *= w1.y; kk[6] *= w1.z; kk[7] *= w1.w;
+        }
+        float acc = 0.f;
+        if (t == ks) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc = fmaf(rt[e] * ub[dg + e], kk[e], acc);
+        } else if (t > ks) {
+#pragma unroll
+          for (int e = 0; e < 8; ++e) acc = fmaf(rt[e], kk[e], acc);
+        }
+        part[t] = acc;
+      }
+      // reduce-scatter over the 8 lanes of a key: lane group q ends with tokens 2q, 2q + 1
+      const int q = tid & 7;
+      float p8[8], p4[4], p2[2];
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const bool up = q & 4;
+        const float send = up ? part[e] : part[e + 8], keep = up ? part[e + 8] : part[e];
+        p8[e] = keep + __shfl_xor_sync(0xffffffffu, send, 4);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const bool up = q & 2;
+        const float send = up ? p8[e] : p8[e + 4], keep = up ? p8[e + 4] : p8[e];
+        p4[e] = keep + __shfl_xor_sync(0xffffffffu, send, 2);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool up = q & 1;
+        const float send = up ? p4[e] : p4[e + 2], keep = up ? p4[e + 2] : p4[e];
+        p2[e] = keep + __shfl_xor_sync(0xffffffffu, send, 1);
+      }
+#pragma unroll
+      for (int e = 0; e < 2; ++e) sm.am[2 * q + e][ks] = p2[e];
+      __syncthreads();   // A is in
+    } else if (warp < 2) {
+      const int nt = warp;
+      float c[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int i = 8 * m + 2 * t4;
+        const float2 e2 = *reinterpret_cast<const float2*>(&sm.einv[i]);
+        const float2 r0 = *reinterpret_cast<const float2*>(&sm.rt[at(g, i)]);
+        const float2 r1 = *reinterpret_cast<const float2*>(&sm.rt[at(g + 8, i)]);
+        const float a[4] = {r0.x * e2.x, r1.x * e2.x, r0.y * e2.y, r1.y * e2.y};
+        const float2 kv = *reinterpret_cast<const float2*>(&sm.kt[at(8 * nt + g, i)]);
+        mma3(c, a, kv.x, kv.y);
+      }
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int t = g + 8 * (e >> 1), s = 8 * nt + 2 * t4 + (e & 1);
+        sm.am[t][s] = s < t ? c[e] : (s == t ? sm.diag[t] : 0.f);
+      }
+      asm volatile("bar.arrive 1, 128;\n" ::: "memory");   // A is in, for warps 2-3
+    }
+
+    if (tid < HD) {
+      // (5a) warps 0-1, a thread per channel i: the terms within the
+      // sub-chunk element by element, decays as running products, and the
+      // outputs. D[t] starts as dr_t's inter term e^{b_t} (S_in dy_t) and
+      // gathers sum_{s<t} dA[t][s] e^{b_t - c_s} k_s as s advances, so after
+      // step s, for m = s + 1,
+      //   dlogw_m = sum_{t>m} r_t D[t] + sum_{s'<m} k_s' e^{c_15 - c_s'} (G_out v_s')
+      //             + e^{c_15} sum_j G_out ⊙ S_in,
+      // every term of each sum a product of factors (no difference of sums).
+      const int ch = tid;
+      float wv[kSub], rv[kSub], es[kSub], D[kSub];
+      float run = 1.f;
+#pragma unroll
+      for (int t = 0; t < kSub; ++t) {
+        wv[t] = sm.w[t][ch];
+        rv[t] = __bfloat162float(sm.r[t][ch]);
+        D[t] = run * sm.dri[at(t, ch)];
+        run *= wv[t];
+      }
+      const float eg = run * sm.gs[ch];   // e^{c_15} · sum_j G_out ⊙ S_in
+      run = 1.f;
+#pragma unroll
+      for (int t = kSub - 1; t >= 0; --t) {
+        es[t] = run;
+        run *= wv[t];
+      }
+      const float ui = ub[ch];
+      __nv_bfloat16* drb = dr + b * sdr.b + h * sdr.h + ch;
+      __nv_bfloat16* dkb = dk + b * sdk.b + h * sdk.h + ch;
+      float* dwb = dlogw + b * sdw.b + h * sdw.h + ch;
+      const int n_live = min(kSub, T - t0);
+      float py = 0.f, q = 0.f;
+#pragma unroll
+      for (int t = 1; t < kSub; ++t) q = fmaf(rv[t], D[t], q);
+      dwb[(long long)t0 * sdw.t] = q + py + eg;
+#pragma unroll
+      for (int s = 0; s < kSub; ++s) {
+        if (s >= n_live) break;
+        const float ks = __bfloat162float(sm.k[s][ch]), dss = sm.da[s][s];
+        drb[(long long)(t0 + s) * sdr.t] = __float2bfloat16(fmaf(dss * ui, ks, D[s]));
+        float ep = 1.f, acc = 0.f;
+#pragma unroll
+        for (int t = s + 1; t < kSub; ++t) {
+          if (t >= s + 2) ep *= wv[t - 1];
+          const float x = sm.da[t][s] * ep;
+          D[t] = fmaf(x, ks, D[t]);
+          acc = fmaf(x, rv[t], acc);
+        }
+        const float ys = es[s] * sm.dki[at(s, ch)];
+        dkb[(long long)(t0 + s) * sdk.t] = __float2bfloat16(fmaf(dss * ui, rv[s], ys + acc));
+        py = fmaf(ks, ys, py);
+        du = fmaf(dss * rv[s], ks, du);
+        if (s + 1 < n_live) {
+          q = 0.f;
+#pragma unroll
+          for (int t = s + 2; t < kSub; ++t) q = fmaf(rv[t], D[t], q);
+          dwb[(long long)(t0 + s + 1) * sdw.t] = q + py + eg;
+        }
+      }
+    } else {
+      // (5b) warps 2-3, value columns j in [32(w - 2), 32(w - 2) + 32):
+      // dv = (k ⊙ e^{c_15 - c}) · G_out + Aᵀ · dY, its A part once warps
+      // 0-1 have formed A, then G_in = diag(e^{c_15}) G_out + (r ⊙ e^{b})ᵀ ·
+      // dY, in place.
+      const int j0 = 32 * (warp - 2);
+      float acc[4][4];
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[nj][e] = 0.f;
+#pragma unroll
+      for (int m = 0; m < 8; ++m) {
+        const int i = 8 * m + 2 * t4;
+        const float2 k0 = *reinterpret_cast<const float2*>(&sm.kt[at(g, i)]);
+        const float2 k1 = *reinterpret_cast<const float2*>(&sm.kt[at(g + 8, i)]);
+        const float a[4] = {k0.x, k1.x, k0.y, k1.y};
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int j = j0 + 8 * nj + g;
+          mma3(acc[nj], a, sm.g[at(i, j)], sm.g[at(i + 1, j)]);
+        }
+      }
+      if (!steep) asm volatile("bar.sync 1, 128;\n" ::: "memory");   // A is in
+#pragma unroll
+      for (int kk = 0; kk < 2; ++kk) {
+        const int t = 8 * kk + 2 * t4;
+        const float a[4] = {sm.am[t][g], sm.am[t][g + 8], sm.am[t + 1][g], sm.am[t + 1][g + 8]};
+#pragma unroll
+        for (int nj = 0; nj < 4; ++nj) {
+          const int j = j0 + 8 * nj + g;
+          mma3(acc[nj], a, sm.dy[at(t, j)], sm.dy[at(t + 1, j)]);
+        }
+      }
+      __nv_bfloat16* dvb = dv + b * sdv.b + h * sdv.h;
+#pragma unroll
+      for (int nj = 0; nj < 4; ++nj)
+#pragma unroll
+        for (int hf = 0; hf < 2; ++hf) {
+          const int s = g + 8 * hf, j = j0 + 8 * nj + 2 * t4;
+          if (t0 + s < T)
+            *reinterpret_cast<__nv_bfloat162*>(dvb + (long long)(t0 + s) * sdv.t + j) =
+                __floats2bfloat162_rn(acc[nj][2 * hf], acc[nj][2 * hf + 1]);
+        }
+      __syncwarp();   // this warp's reads of its columns of G_out are done
+#pragma unroll
+      for (int jt = 0; jt < 2; ++jt) {
+        const int jr = j0 + 16 * jt + g;   // Gᵀ's rows jr and jr + 8
+        float ay[2][4];
+#pragma unroll
+        for (int kk = 0; kk < 2; ++kk) {
+          const int t = 8 * kk + 2 * t4;
+          ay[kk][0] = sm.dy[at(t, jr)];
+          ay[kk][1] = sm.dy[at(t, jr + 8)];
+          ay[kk][2] = sm.dy[at(t + 1, jr)];
+          ay[kk][3] = sm.dy[at(t + 1, jr + 8)];
+        }
+#pragma unroll
+        for (int n = 0; n < 8; ++n) {
+          float p[4] = {0.f, 0.f, 0.f, 0.f};
+#pragma unroll
+          for (int kk = 0; kk < 2; ++kk) {
+            const int t = 8 * kk + 2 * t4, i = 8 * n + g;
+            mma3(p, ay[kk], sm.rt[at(t, i)], sm.rt[at(t + 1, i)]);
+          }
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 8 * n + 2 * t4 + (e & 1), idx = at(i, jr + 8 * (e >> 1));
+            sm.g[idx] = fmaf(sm.ec[i], sm.g[idx], p[e]);
+          }
+        }
+      }
+    }
+    __syncthreads();   // G_in in place; the stage is free for the next sub-chunk
+  }
+  if (ds0) {
+    for (int idx = tid; idx < HD * HD / 4; idx += kCThreads) {
+      const int i = idx / (HD / 4), c = (idx % (HD / 4)) * 4;
+      *reinterpret_cast<float4*>(ds0 + sbase + i * HD + c) =
+          *reinterpret_cast<const float4*>(&sm.g[at(i, c)]);
+    }
+  }
+  if (du_part && tid < HD) du_part[(long long)bh * HD + tid] = du;
+}
+
+bool aligned16(const void* p, const Strides& s, int elt) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && (s.b * elt) % 16 == 0 &&
+         (s.h * elt) % 16 == 0 && (s.t * elt) % 16 == 0;
+}
+
 }  // namespace
 
 // r, k, v (f32 or bf16), logw and dy (f32): (B, H, T, hd) given by their
 // (b, h, t) strides in elements, hd contiguous; dr, dk, dv (r's type) and
 // dlogw (f32) likewise; u (H, hd) f32 contiguous; s0, ds_t and ds0
-// (nullable) (B, H, hd, hd) f32 contiguous; ckpt B·H·ceil(T/8)·hd·hd f32
-// scratch; du_part (B, H, hd) and du (H, hd) f32, both null when du is not
-// wanted. Returns cudaGetLastError() after the launches (0 on success), or
+// (nullable) (B, H, hd, hd) f32 contiguous; ckpt scratch of
+// B·H·ceil(T/16)·hd·hd f32 for bf16, B·H·ceil(T/8)·hd·hd for f32; du_part
+// (B, H, hd) and du (H, hd) f32, both null when du is not wanted. Returns
+// cudaGetLastError() after the launches (0 on success), or
 // cudaErrorInvalidValue for a head dim without a kernel.
 extern "C" int rwkv6_wkv_bwd_launch(
     const void* r, const void* k, const void* v, const void* logw, const void* u,
@@ -307,12 +941,22 @@ extern "C" int rwkv6_wkv_bwd_launch(
   float* dup = static_cast<float*>(du_part);
   float* d0 = static_cast<float*>(ds0);
   float* cp = static_cast<float*>(ckpt);
-  if (is_bf16) {
+  if (is_bf16) {   // the chunked kernel
     using E = __nv_bfloat16;
-    rwkv6_wkv_bwd_kernel<E><<<B * H, kThreads, 0, cs>>>(
+    const bool vec = aligned16(r, sr, 2) && aligned16(k, sk, 2) && aligned16(v, sv, 2) &&
+                     aligned16(logw, sw, 4) && aligned16(dy, sdy, 4);
+    const int bytes = (int)sizeof(ChunkSmem);
+    cudaError_t err = cudaFuncSetAttribute(rwkv6_wkv_bwd_chunked,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err == cudaSuccess)
+      err = cudaFuncSetAttribute(rwkv6_wkv_bwd_chunked,
+                                 cudaFuncAttributePreferredSharedMemoryCarveout,
+                                 (int)cudaSharedmemCarveoutMaxShared);
+    if (err != cudaSuccess) return (int)err;
+    rwkv6_wkv_bwd_chunked<<<B * H, kCThreads, bytes, cs>>>(
         static_cast<const E*>(r), static_cast<const E*>(k), static_cast<const E*>(v), lw, uu, s,
         g, dst, static_cast<E*>(dr), static_cast<E*>(dk), static_cast<E*>(dv), dwp, dup, d0, cp,
-        sr, sk, sv, sw, sdy, sdr, sdk, sdv, sdw, H, T);
+        sr, sk, sv, sw, sdy, sdr, sdk, sdv, sdw, H, T, vec);
   } else {
     rwkv6_wkv_bwd_kernel<float><<<B * H, kThreads, 0, cs>>>(
         static_cast<const float*>(r), static_cast<const float*>(k), static_cast<const float*>(v),

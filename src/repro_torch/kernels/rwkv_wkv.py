@@ -180,9 +180,11 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-# Tokens between two of the backward kernel's checkpointed states
-# (csrc/rwkv_wkv_bwd.cu kL): its scratch holds B·H·ceil(T / 8) states.
-BWD_CHECKPOINT = 8
+# Tokens between two of the backward kernels' kept states: the bf16 chunked
+# kernel's sub-chunk (csrc/rwkv_wkv_bwd.cu kSub) and the f32 sequential
+# kernel's interval (kL). The scratch holds B·H·ceil(T / n) states.
+BWD_CHECKPOINT = 16
+BWD_CHECKPOINT_F32 = 8
 
 
 def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch.Tensor,
@@ -195,8 +197,9 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch
     in memory, dlogw f32, du (H, hd) f32 summed over batch and time or
     None, dS_0 (B, H, hd, hd) f32 or None). ``need_du`` / ``need_ds0``
     False skip those outputs (dS_0 is also None without a start state).
-    The kernel of ``csrc/rwkv_wkv_bwd.cu`` for CUDA tensors, deterministic;
-    ``rwkv6_wkv_bwd_plain`` for CPU tensors."""
+    The kernels of ``csrc/rwkv_wkv_bwd.cu`` for CUDA tensors (bf16: the
+    chunked form on the tensor cores; f32: the sequential recurrence),
+    deterministic; ``rwkv6_wkv_bwd_plain`` for CPU tensors."""
     extra = tuple(t for t in (state, ds) if t is not None)
     need_ds0 = need_ds0 and state is not None
     if _build.device_kind(r, k, v, logw, u, dy, *extra) == "cpu":
@@ -214,6 +217,8 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch
         raise ValueError("rwkv6_wkv_bwd: ds must be a float32 (B, H, hd, hd)")
     if ds is not None:
         ds = ds.contiguous()
+    # the bf16 kernel reads the end states 8 and 16 bytes at a time
+    state, ds = (t.clone() if t is not None and t.data_ptr() % 16 else t for t in (state, ds))
     for t in (r, k, v, logw):
         if t.stride(-1) != 1:
             raise ValueError("rwkv6_wkv_bwd: the last dim of every input must be contiguous")
@@ -228,8 +233,8 @@ def rwkv6_wkv_bwd(r: torch.Tensor, k: torch.Tensor, v: torch.Tensor, logw: torch
         return (*grads, du, None if ds0 is None else
                 (ds0.zero_() if ds is None else ds0.copy_(ds)))
     du_part = torch.empty((B, H, hd), dtype=torch.float32, device=dev) if need_du else None
-    ckpt = torch.empty(B * H * -(-T // BWD_CHECKPOINT) * hd * hd, dtype=torch.float32,
-                       device=dev)
+    every = BWD_CHECKPOINT if r.dtype == torch.bfloat16 else BWD_CHECKPOINT_F32
+    ckpt = torch.empty(B * H * -(-T // every) * hd * hd, dtype=torch.float32, device=dev)
     ptr = lambda t: None if t is None else t.data_ptr()
     strides = [s for t in (r, k, v, logw, dy, *grads) for s in t.stride()[:3]]
     rc = _bwd_lib().rwkv6_wkv_bwd_launch(

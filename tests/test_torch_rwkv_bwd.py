@@ -11,10 +11,12 @@ that gap), T around the CUDA kernel's 8-token checkpoint interval and the
 forward's 16-token sub-chunk, from a zero or a given state, with and
 without a gradient for the final state, at gentle decays and at steep ones
 (logw = -e^4, about -55, where w underflows to 1e-24: dlogw = w·Σ G ⊙ S is
-formed from the state itself, never by dividing by w). The CUDA kernel runs
-only on the card: ``test_cuda_rwkv6_wkv_bwd_matches_plain`` holds it against
-the plain version there and skips elsewhere (``chip_smoke.py`` phase 9e at
-the tuning shape).
+formed from the state itself, never by dividing by w). The bf16 CUDA
+kernel's chunked algebra is restated on the CPU by
+``wkv_bwd_chunked_mirror`` and held to 1e-5 of the float64 gradients. The
+CUDA kernels run only on the card: ``test_cuda_rwkv6_wkv_bwd_matches_plain``
+holds them against the plain version there and skips elsewhere
+(``chip_smoke.py`` phase 9e at the tuning shape).
 """
 import jax
 import jax.numpy as jnp
@@ -77,15 +79,19 @@ def float64_grads(r, k, v, logw, u, state, dy, ds):
     return [np.zeros(x.shape) if g is None else g.numpy() for g, x in zip(grads, leaves)]
 
 
+@jax.jit
+def _ref_vjp(r, k, v, logw, u, state, dy, ds):
+    return jax.vjp(rwkv6_wkv_ref, r, k, v, logw, u, state)[1]((dy, ds))
+
+
 def jax_grads(r, k, v, logw, u, state, dy, ds):
     """jax.vjp of the reference's oracle, (B·H, T, hd) flattened as its
-    kernels take it."""
+    kernels take it (compiled once per shape)."""
     B, H, T, hd = r.shape
     flat = lambda a: jnp.asarray(a.reshape(B * H, *a.shape[2:]))
     uu = jnp.asarray(np.broadcast_to(u[None], (B, H, hd)).reshape(B * H, hd))
-    _, vjp = jax.vjp(rwkv6_wkv_ref, flat(r), flat(k), flat(v), flat(logw), uu, flat(state))
     cot_s = flat(ds) if ds is not None else jnp.zeros((B * H, hd, hd), jnp.float32)
-    g = vjp((flat(dy), cot_s))
+    g = _ref_vjp(flat(r), flat(k), flat(v), flat(logw), uu, flat(state), flat(dy), cot_s)
     shaped = [np.asarray(x).reshape(B, H, *x.shape[1:]) for x in g]
     shaped[4] = shaped[4].sum(0)                  # du: summed over the batch
     return shaped
@@ -164,6 +170,185 @@ def test_bwd_takes_the_models_strided_views():
         assert rel_max(x, y) <= 1e-6, name
 
 
+# -- the bf16 CUDA kernel's chunked decomposition, mirrored ------------------------
+
+SUB = 16        # the bf16 kernel's sub-chunk (csrc/rwkv_wkv_bwd.cu kSub)
+GUARD = 60.0    # its kMinDecay = e^{-GUARD}: past it a sub-chunk's scores go element by element
+MIRROR_TOL = 1e-5
+
+
+def _tf32(x):
+    """x as the tensor core reads a TF32 operand: its top 19 bits (sign,
+    exponent, 10 mantissa bits), the rest dropped."""
+    return (x.contiguous().view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x):
+    """The kernel's split x = hi + lo: hi truncated to TF32, lo = x - hi
+    (exact in f32), read by the tensor core as TF32."""
+    hi = _tf32(x)
+    return hi, _tf32(x - hi)
+
+
+def _mm3(a, b):
+    """a @ b on the tensor cores with both operands split: lo·hi + hi·lo + hi·hi."""
+    (ah, al), (bh, bl) = _split(a), _split(b)
+    return al @ bh + ah @ bl + ah @ bh
+
+
+def _mm2(a, b):
+    """a @ b with a split and b exact in TF32 (bf16 values)."""
+    ah, al = _split(a)
+    return al @ b + ah @ b
+
+
+def _mm2b(a, b):
+    """a @ b with a exact in TF32 (bf16 values) and b split."""
+    bh, bl = _split(b)
+    return a @ bl + a @ bh
+
+
+def _decays(logw):
+    """Per channel, running products of w = e^{logw} over a sub-chunk, as a
+    thread per channel forms them: (w, e^{b_t} = prod_{m<t} w_m,
+    e^{c_15 - c_t} = prod_{m>t} w_m, e^{c_15} = the product of all 16)."""
+    w = torch.exp(logw)
+    eb, es = torch.empty_like(w), torch.empty_like(w)
+    run = torch.ones_like(w[:, :, 0])
+    for t in range(SUB):
+        eb[:, :, t] = run
+        run = run * w[:, :, t]
+    ec = run
+    run = torch.ones_like(ec)
+    for t in range(SUB - 1, -1, -1):
+        es[:, :, t] = run
+        run = run * w[:, :, t]
+    return w, eb, es, ec
+
+
+def wkv_bwd_chunked_mirror(r, k, v, logw, u, state, dy, ds):
+    """What the bf16 backward kernel computes, written out in f32: sub-chunks
+    of 16 tokens (zero-padded: logw = 0, r = k = v = dy = 0). A forward walk
+    keeps the state entering each sub-chunk, S <- e^{c_15} S + (v)ᵀ (k ⊙
+    e^{c_15 - c}) on the tensor cores. Then from the last sub-chunk, with
+    R̃ = r ⊙ e^{b}, K̃ = k ⊙ e^{c_15 - c} and dA = dY Vᵀ: A by the factored
+    product (R̃ ⊙ e^{-c_15}) K̃ᵀ where e^{c_15} >= e^{-GUARD} in every
+    channel, else element by element with running products; dY S_inᵀ,
+    V G_outᵀ, dv = K̃ G_out + Aᵀ dY and G_in = e^{c_15} G_out + R̃ᵀ dY in TF32
+    with split operands; then per channel, element by element, D[t] =
+    e^{b_t} (S_in dy_t) gathering sum_{s<t} dA[t][s] e^{b_t - c_s} k_s as s
+    advances, dlogw_m = sum_{t>m} r_t D[t] + sum_{s<m} k_s e^{c_15 - c_s}
+    (G_out v_s) + e^{c_15} sum_j G_out ⊙ S_in (a sum of products, no
+    difference of sums), dr, dk and du. Returns (dr, dk, dv, dlogw, du (H,
+    hd), dS_0)."""
+    B, H, T, hd = r.shape
+    n = -(-T // SUB)
+    pad = lambda x: torch.nn.functional.pad(x, (0, 0, 0, n * SUB - T))
+    r, k, v, logw, dy = pad(r), pad(k), pad(v), pad(logw), pad(dy)
+    sub = lambda x, c: x[:, :, c * SUB:(c + 1) * SUB]
+    S = state.clone() if state is not None else torch.zeros(B, H, hd, hd)
+    s_in = [S]
+    for c in range(n - 1):
+        _, _, es, ec = _decays(sub(logw, c))
+        upd = _mm2b(sub(v, c).transpose(-1, -2), sub(k, c) * es).transpose(-1, -2)
+        S = ec[..., None] * S + upd
+        s_in.append(S)
+    G = ds.clone() if ds is not None else torch.zeros(B, H, hd, hd)
+    min_decay = torch.tensor(np.exp(-GUARD), dtype=torch.float32)
+    below = torch.tril(torch.ones(SUB, SUB, dtype=torch.bool), -1)
+    eye = torch.eye(SUB, dtype=torch.bool)
+    dr, dk, dv, dlogw = (torch.zeros(B, H, n * SUB, hd) for _ in range(4))
+    du = torch.zeros(B, H, hd)
+    for c in reversed(range(n)):
+        rc, kc, vc, dyc = (sub(x, c) for x in (r, k, v, dy))
+        w, eb, es, ec = _decays(sub(logw, c))
+        safe = ec >= min_decay
+        einv = torch.where(safe, 1.0 / ec, torch.ones_like(ec))
+        rt, kt = rc * eb, kc * es
+        dA = _mm2(dyc, vc.transpose(-1, -2))
+        a_fact = _mm3(rt * einv[:, :, None], kt.transpose(-1, -2))
+        a_elem = torch.zeros(B, H, SUB, SUB)
+        for s_ in range(SUB):
+            kk = kc[:, :, s_].clone()
+            for t in range(s_ + 1, SUB):
+                if t >= s_ + 2:
+                    kk = kk * w[:, :, t - 1]
+                a_elem[:, :, t, s_] = (rc[:, :, t] * kk).sum(-1)
+        steep = (~safe).any(-1)[:, :, None, None]
+        diag = (rc * u[None, :, None] * kc).sum(-1)
+        A = torch.where(below, torch.where(steep, a_elem, a_fact), 0.0) \
+            + torch.where(eye, diag[..., None], 0.0)
+        S_in = s_in[c]
+        dri = _mm3(dyc, S_in.transpose(-1, -2))
+        dki = _mm2b(vc, G.transpose(-1, -2))
+        eg = ec * (G * S_in).sum(-1)
+        dv[:, :, c * SUB:(c + 1) * SUB] = _mm3(kt, G) + _mm3(A.transpose(-1, -2), dyc)
+        G = ec[..., None] * G + _mm3(rt.transpose(-1, -2), dyc)
+        dd = torch.diagonal(dA, dim1=-2, dim2=-1)[..., None]
+        D = [eb[:, :, t] * dri[:, :, t] for t in range(SUB)]
+        py = torch.zeros(B, H, hd)
+        q = sum(rc[:, :, t] * D[t] for t in range(1, SUB))
+        dlogw[:, :, c * SUB] = q + py + eg
+        for s_ in range(SUB):
+            t_s = c * SUB + s_
+            dr[:, :, t_s] = D[s_] + dd[:, :, s_] * u * kc[:, :, s_]
+            ep, acc = torch.ones(B, H, hd), torch.zeros(B, H, hd)
+            for t in range(s_ + 1, SUB):
+                if t >= s_ + 2:
+                    ep = ep * w[:, :, t - 1]
+                x = dA[:, :, t, s_, None] * ep
+                D[t] = D[t] + x * kc[:, :, s_]
+                acc = acc + x * rc[:, :, t]
+            ys = es[:, :, s_] * dki[:, :, s_]
+            dk[:, :, t_s] = ys + acc + dd[:, :, s_] * u * rc[:, :, s_]
+            py = py + kc[:, :, s_] * ys
+            if s_ + 1 < SUB:
+                q = sum((rc[:, :, t] * D[t] for t in range(s_ + 2, SUB)), torch.zeros(B, H, hd))
+                dlogw[:, :, t_s + 1] = q + py + eg
+            du = du + dd[:, :, s_] * rc[:, :, s_] * kc[:, :, s_]
+    cut = lambda x: x[:, :, :T]
+    return cut(dr), cut(dk), cut(dv), cut(dlogw), du.sum(0), G
+
+
+def mirror_decay(logw, decay, hd):
+    """The mirror test's decays: the model's draws; none (logw = 0); steep
+    (logw = -e^4 ≈ -55 in every step: element-by-element scores); mixed
+    (steep in half the channels: element-by-element scores beside channels
+    that keep most of their state); edge (logw = -3.7, a sub-chunk total of
+    -59.2 just inside the guard: factors up to e^59)."""
+    return {"drawn": logw, "none": np.zeros_like(logw),
+            "steep": np.full_like(logw, -np.exp(4.0)),
+            "mixed": np.where(np.arange(hd) % 2 == 0, -np.exp(4.0), logw),
+            "edge": np.full_like(logw, -3.7)}[decay].astype(np.float32)
+
+
+@pytest.mark.parametrize("ends", sorted(ENDS))
+@pytest.mark.parametrize("decay", ["drawn", "none", "steep", "mixed", "edge"])
+@pytest.mark.parametrize("T", [1, SUB - 1, SUB, SUB + 1, 2 * SUB - 1, 2 * SUB, 2 * SUB + 1, 40])
+def test_chunked_wkv_bwd_mirror_matches_float64_and_jax_vjp(T, decay, ends):
+    """The bf16 kernel's decomposition at the sub-chunk's edges, each
+    gradient held to 1e-5 of its largest element against the float64
+    recurrence's, and against jax.vjp of the reference's oracle to 1e-5
+    plus that oracle's own distance from float64 (its f32 sums)."""
+    with_state, with_ds = ENDS[ends]
+    B, H, hd = 1, 2, 64
+    r, k, v, logw, u, state, dy, ds = wkv_inputs(300 + T, B, H, T, hd, "gentle")
+    logw = mirror_decay(logw, decay, hd)
+    r, k, v = (torch.from_numpy(a).bfloat16().float().numpy() for a in (r, k, v))
+    if not with_state:
+        state = np.zeros_like(state)
+    ds = ds if with_ds else None
+    t = lambda a: None if a is None else torch.from_numpy(a)
+    ours = wkv_bwd_chunked_mirror(t(r), t(k), t(v), t(logw), t(u),
+                                  t(state) if with_state else None, t(dy), t(ds))
+    ref64 = float64_grads(r, k, v, logw, u, state, dy, ds)
+    refj = jax_grads(r, k, v, logw, u, state, dy, ds)
+    for name, a, b64, bj in zip(NAMES, ours, ref64, refj):
+        assert a.shape == b64.shape and np.isfinite(a.numpy()).all(), name
+        assert rel_max(a, b64) <= MIRROR_TOL, (name, rel_max(a, b64))
+        assert rel_max(a, bj) <= MIRROR_TOL + rel_max(bj, b64), (name, rel_max(a, bj))
+
+
 # -- through the model's time mix: the reference's chunked scan ----------------------
 
 @pytest.fixture(scope="module")
@@ -231,12 +416,15 @@ def cuda_device():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_cuda_rwkv6_wkv_bwd_matches_plain(cuda_device, dtype):
     """The kernel against its plain version at chip_smoke.py phase 9e's
-    tolerances (2e-5 f32, 3e-2 bf16, of the largest element), around its
-    8-token checkpoint interval, with and without the two end states, at
-    steep decays; two calls bitwise equal."""
+    tolerances (2e-5 f32, 3e-2 bf16, of the largest element), around the
+    f32 kernel's 8-token interval and the bf16 kernel's 16-token sub-chunk,
+    with and without the two end states, at steep decays; two calls bitwise
+    equal."""
     tol = 2e-5 if dtype == torch.float32 else 3e-2
     for T, decay, ends in ((1, "gentle", "both"), (7, "steep", "none"), (8, "gentle", "state"),
-                           (9, "steep", "ds"), (33, "gentle", "both"), (40, "steep", "both")):
+                           (9, "steep", "ds"), (15, "steep", "ds"), (16, "gentle", "both"),
+                           (17, "gentle", "state"), (32, "steep", "both"), (33, "gentle", "both"),
+                           (40, "steep", "both")):
         with_state, with_ds = ENDS[ends]
         r, k, v, logw, u, state, dy, ds = (
             torch.from_numpy(x).to(cuda_device)
