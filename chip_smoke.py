@@ -118,6 +118,22 @@ Phases, in order; any failure ends the run with a non-zero exit:
    Prompt Bank built from the result and one lookup. On (c), (d), (e) and
    (f) every kernel of the path must be launched and no plain version may
    run.
+10. The service's front door (run after phase 5, on phase 3's model and
+   bank; examples/quickstart.py, steps 2-5): a PromptTunerService (two
+   shards, the elastic control plane) over phase 3's bank less the
+   requested tasks' own candidates, its scorer make_score_fn on the card;
+   a first wave of gpt2-base requests from two tenants in three classes:
+   the routed ones' lookups against direct lookups and the CPU f32 path,
+   one SLO below the latency budget (not routed, no kernel launched), one
+   unknown LLM (KeyError); PromptTuner.tune from two routed requests' bank
+   prompts and from manual ones to one target; follow-ups carrying the
+   tuned prompts, their activation features and measured ITAs; after
+   run_until_idle the bank must have grown by the completed follow-ups
+   (origins ".../online") and a lookup on it runs on the card; the
+   simulated schedule must equal a second service's on the CPU with no
+   bank. score_ce and flash_attention must be launched on the lookups, and
+   their backward kernels on the tuning, with no plain version run. The
+   simulated summaries come from LLM_PROFILES, the paper's A100 figures.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -528,7 +544,7 @@ def phase_slice(dev: torch.device, seed: int):
 
 # -- phase 4 --------------------------------------------------------------------
 
-def phase_rescore(model, bank, results, seed: int) -> None:
+def phase_rescore(model, bank, results, seed: int):
     from repro_torch.config import TuneConfig
     from repro_torch.core import make_score_fn
     from repro_torch.models import Model
@@ -554,6 +570,8 @@ def phase_rescore(model, bank, results, seed: int) -> None:
     if failed:
         raise AssertionError(f"card scores disagree with the CPU f32 path for {failed} "
                              f"(relative tolerance {BF16_SCORE_RTOL} bf16, {F32_SCORE_RTOL} f32)")
+    del f32_gpu
+    return ref_cpu
 
 
 # -- phase 5 --------------------------------------------------------------------
@@ -828,6 +846,233 @@ def phase_profile(model, bank, results) -> None:
         fn = make_score_fn(model, task, TuneConfig(prompt_len=16))
         positions = 16 + fn.eval_batch["tokens"].shape[1]
         profile_calls(f"[5] one evaluation at {positions} positions", lambda: fn(entry))
+
+
+# -- phase 10 (after phase 5, on phase 3's model and bank) -----------------------
+
+# A lookup through the service against a direct lookup of the same scorer:
+# the same kernels on the same inputs, so the scores should be bitwise equal.
+SERVICE_SCORE_RTOL = 1e-6
+SERVICE_TUNE_ITERS = 40
+
+
+def phase_service(model, bank, ref_cpu, card: str, seed: int) -> dict:
+    """examples/quickstart.py's steps 2-5 through the port's PromptTunerService,
+    at gpt2-base full width on the card. Returns the launches by label."""
+    from repro_torch.api import PromptTunerService, SubmitRequest
+    from repro_torch.cluster import ElasticConfig, SimConfig
+    from repro_torch.config import TuneConfig
+    from repro_torch.core import PromptBank, make_score_fn, select_manual
+    from repro_torch.core.jobs import LLM_PROFILES
+    from repro_torch.data import LoaderConfig, TaskLoader, make_tasks
+    from repro_torch.models import prompt_from_arrays
+    from repro_torch.tuning import PromptTuner, activation_features
+
+    t_phase = time.perf_counter()
+    dev = model.device
+    tune_cfg = TuneConfig(prompt_len=16)
+    tasks = {t.task_id: t for t in make_tasks(vocab=32, partitions=4)}   # phase 3's tasks
+    prof = LLM_PROFILES["gpt2-base"]
+    budget_slo = prof.bank_lookup_s / SimConfig().latency_budget_frac    # 26.5 s
+    # (task, tenant, class, SLO in s); premium's multiplier is 0.75, best-effort's
+    # above 1; the last is below the latency budget and must not be routed
+    wave = [("copy:1", "acme", "premium", 60.0), ("xor:2", "globex", "standard", 90.0),
+            ("shift:3", "acme", "best-effort", 40.0), ("negate:0", "globex", "premium", 300.0),
+            ("prev:2", "acme", "standard", 0.5 * budget_slo)]
+    requested = {tid for tid, *_ in wave}
+    holdout = PromptBank(capacity=bank.capacity, num_clusters=bank.num_clusters, seed=bank.seed)
+    holdout.add_candidates([e for e in bank.entries if e.origin.split("/")[0] not in requested])
+    holdout.build()
+    evaluations = [0]
+
+    def score_factory(req):
+        """Eqn 1 on the request's task's eval set, on the card."""
+        fn = make_score_fn(model, tasks[req.task_id], tune_cfg)
+
+        def score(entry):
+            evaluations[0] += 1
+            return fn(entry)
+        return score
+
+    def service(bank_, factory):
+        return PromptTunerService(SimConfig(max_gpus=16), bank=bank_, score_fn_factory=factory,
+                                  shards=2, elastic=ElasticConfig())
+
+    svc = service(holdout, score_factory)
+    print(f"[10] PromptTunerService (prompttuner, SimConfig(max_gpus=16), 2 shards, elastic) "
+          f"over phase 3's bank less {sorted(requested)}'s own candidates: {len(holdout)} of "
+          f"{len(bank.entries)}, {len(holdout.medoid_ids)} clusters; scorer make_score_fn on "
+          f"{model.cfg.name} ({model.cfg.num_layers} layers, d={model.cfg.d_model}, "
+          f"{model.cfg.dtype}), P={tune_cfg.prompt_len}, {tune_cfg.eval_samples} eval samples; "
+          f"latency budget: SLO x class multiplier >= {budget_slo:.1f} s (bank_lookup_s "
+          f"{prof.bank_lookup_s} s, the paper's A100 figure)")
+
+    kernels = {n: k for n, k in training_kernels().items() if n in ATTENTION_TUNING}
+    by_label = {name: {} for name in kernels}
+    calls: dict = {}
+    for k in kernels.values():
+        k.launches = 0
+    requests, submitted = [], []
+
+    def submit(req):
+        requests.append(req)
+        t0 = time.perf_counter()
+        handle = svc.submit(req)
+        torch.cuda.synchronize()
+        return handle, time.perf_counter() - t0
+
+    # (a) the first wave
+    lookups = "gpt2-base, service: first wave's routed lookups"
+    for tid, tenant, cls, slo in wave:
+        req = SubmitRequest(task_id=tid, llm="gpt2-base", slo=slo, iters_manual=400,
+                            iters_bank=120, tenant=tenant, slo_class=cls)
+        before, n0 = {n: k.launches for n, k in kernels.items()}, evaluations[0]
+        with plain_calls(calls), counted(kernels, by_label, lookups):
+            handle, wall = submit(req)
+        fired = {n: k.launches - before[n] for n, k in kernels.items()}
+        submitted.append((handle, wall, evaluations[0] - n0, fired))
+    bad = SubmitRequest(task_id="copy:1", llm="gpt-5", slo=300.0, iters_manual=400,
+                        iters_bank=120, tenant="acme")
+    before = {n: k.launches for n, k in kernels.items()}
+    try:
+        svc.submit(bad)
+    except KeyError as exc:
+        print(f"[10a] unknown LLM: KeyError {exc}")
+    else:
+        raise AssertionError("[10a] a request for an unknown LLM was accepted")
+    if any(k.launches != before[n] for n, k in kernels.items()):
+        raise AssertionError("[10a] the unknown-LLM request launched a kernel")
+
+    routed = [(h, w, e, f) for h, w, e, f in submitted if h.routed_through_bank]
+    for handle, wall, evals, fired in submitted:
+        eff = f"effective SLO {handle.effective_slo:.1f} s"
+        if not handle.routed_through_bank:
+            print(f"[10a] {handle.task_id} ({handle.tenant}, {handle.slo_class}, {eff}): not "
+                  f"routed, shard {handle.shard}, {evals} evaluations, launches {fired}")
+            if any(fired.values()) or evals or handle.bank_origin is not None:
+                raise AssertionError(f"[10a] the unrouted request {handle.task_id} looked up")
+            continue
+        direct_fn = make_score_fn(model, tasks[handle.task_id], tune_cfg)
+        t0 = time.perf_counter()
+        direct = holdout.lookup(direct_fn)
+        torch.cuda.synchronize()
+        direct_wall = time.perf_counter() - t0
+        rel = abs(handle.bank_score - direct.score) / abs(direct.score)
+        cpu = make_score_fn(ref_cpu, tasks[handle.task_id], tune_cfg)(direct.entry)
+        rel_cpu = abs(handle.bank_score - cpu) / abs(cpu)
+        print(f"[10a] {handle.task_id} ({handle.tenant}, {handle.slo_class}, {eff}): routed, "
+              f"shard {handle.shard}, {handle.bank_origin} score {handle.bank_score:.6f}; "
+              f"through the service {wall * 1e3:.3f} ms for {evals} evaluations "
+              f"({evals / wall:.1f} evaluations/s), directly {direct_wall * 1e3:.3f} ms "
+              f"({direct.evaluations}): {direct.entry.origin} {direct.score:.6f} (rel "
+              f"{rel:.1e}); cpu f32 {cpu:.6f} (rel {rel_cpu:.2e}); on {card}")
+        if (handle.bank_origin != direct.entry.origin or not rel <= SERVICE_SCORE_RTOL
+                or evals != direct.evaluations):
+            raise AssertionError(f"[10a] {handle.task_id}: the service's lookup differs from "
+                                 f"a direct one (rtol {SERVICE_SCORE_RTOL})")
+        if not rel_cpu <= BF16_SCORE_RTOL:
+            raise AssertionError(f"[10a] {handle.task_id}: the card's score disagrees with the "
+                                 f"CPU f32 path (rtol {BF16_SCORE_RTOL})")
+        if fired["score_ce"] <= 0 or fired["flash_attention"] <= 0:
+            raise AssertionError(f"[10a] {handle.task_id}'s lookup launched {fired}")
+    if len(routed) != len(wave) - 1:
+        raise AssertionError("[10a] the requests within the budget were not all routed")
+    walls = [w for _, w, _, _ in routed]
+    evals = sum(e for _, _, e, _ in routed)
+    print(f"[10a] {len(routed)} routed submits: mean {statistics.mean(walls) * 1e3:.3f} ms, "
+          f"{evals / sum(walls):.1f} Eqn-1 evaluations/s on {card}; the simulator charges "
+          f"bank_lookup_s {prof.bank_lookup_s} s, the paper's A100 figure")
+
+    # (b) tune from the bank's prompt and from a manual one, to one target each
+    tuner = PromptTuner(model, tune_cfg)
+    tuned = []
+    label = (f"gpt2-base, service: tune 2 requests from the bank's and a manual prompt "
+             f"(at most {SERVICE_TUNE_ITERS} iterations each)")
+    for handle, *_ in routed[:2]:
+        task = tasks[handle.task_id]
+        target = 0.98 * handle.bank_score
+        runs = {}
+        for init, prompt in (("bank", handle.initial_prompt),
+                             ("manual", select_manual(model.cfg.d_model, tune_cfg.prompt_len,
+                                                      seed=7))):
+            loader = TaskLoader(task, LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+            pp = prompt_from_arrays({"soft_prompt": prompt}, dev)
+            t0 = time.perf_counter()
+            with plain_calls(calls), counted(kernels, by_label, label):
+                res = tuner.tune(loader, pp, target_loss=target, max_iters=SERVICE_TUNE_ITERS)
+                torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            runs[init] = res
+            per_iter = f"{wall / res['iters'] * 1e3:.3f} ms an iteration" if res["iters"] else "-"
+            hist = [(it, round(l, 6), round(e, 6)) for it, l, e in res["history"]]
+            print(f"[10b] {handle.task_id} {init:6s} init: ITA={res['iters']} (reached "
+                  f"{res['reached']}, target {target:.6f} = 0.98 x the bank prompt's score) in "
+                  f"{wall:.3f} s, {per_iter} with its share of the evaluations, on {card}; "
+                  f"history {hist}")
+            # the bank's prompt starts at its score, above the target: it must tune
+            if (not all(np.isfinite([e for _, _, e in res["history"]]))
+                    or (init == "bank" and res["iters"] < 1)):
+                raise AssertionError(f"[10b] {handle.task_id} {init}: tuning did not run")
+        tuned.append((handle, runs))
+
+    # (c) follow-ups carrying the tuned prompts: online insertion (Fig 5b)
+    size0 = len(holdout)
+    follow = "gpt2-base, service: follow-ups' lookups and a lookup on the grown bank"
+    follow_ids = []
+    for handle, runs in tuned:
+        prompt = runs["bank"]["prompt"]["soft_prompt"].detach().float().cpu().numpy()
+        feature = activation_features(model, prompt)
+        req = SubmitRequest(task_id=handle.task_id, llm="gpt2-base", slo=120.0,
+                            iters_manual=runs["manual"]["iters"], iters_bank=runs["bank"]["iters"],
+                            tenant=handle.tenant, slo_class=handle.slo_class, prompt=prompt,
+                            feature=feature)
+        with plain_calls(calls), counted(kernels, by_label, follow):
+            h, _ = submit(req)
+        follow_ids.append(h.job_id)
+    results = svc.run_until_idle()
+    done = [r for r in results if r.handle.job_id in follow_ids and r.completed]
+    online = [e.origin for e in holdout.entries[len(holdout.entries) - len(done):]]
+    print(f"[10c] run_until_idle: {len(results)} jobs, {len(done)} follow-ups completed and "
+          f"inserted {[r.inserted_to_bank for r in done]}; bank {size0} -> {len(holdout)} "
+          f"entries, the new ones {online}")
+    if (not done or not all(r.inserted_to_bank for r in done)
+            or any(r.inserted_to_bank for r in results if r.handle.job_id not in follow_ids)
+            or len(holdout) != size0 + len(done)
+            or not all(o.endswith("/online") for o in online)):
+        raise AssertionError("[10c] online insertion did not grow the bank by the completed "
+                             "follow-ups")
+    before = {n: k.launches for n, k in kernels.items()}
+    with plain_calls(calls), counted(kernels, by_label, follow):
+        after = holdout.lookup(score_factory(requests[0]))
+        torch.cuda.synchronize()
+    fired = {n: k.launches - before[n] for n, k in kernels.items()}
+    print(f"[10c] lookup for {requests[0].task_id} on the grown bank: {after.entry.origin} "
+          f"score {after.score:.6f}, {after.evaluations} evaluations, launches {fired}")
+    if fired["score_ce"] <= 0 or fired["flash_attention"] <= 0 or not np.isfinite(after.score):
+        raise AssertionError("[10c] the lookup on the grown bank did not run on the card")
+
+    # (d) the schedule: the same requests through a second service, CPU only, no bank
+    cpu_svc = service(None, None)
+    for req in requests:
+        cpu_svc.submit(req)
+    key = lambda rs: [(r.handle.job_id, r.start, r.finish, r.gpus, r.violated) for r in rs]
+    cpu_results = cpu_svc.run_until_idle()
+    if key(cpu_results) != key(results) or cpu_svc.summary() != svc.summary():
+        raise AssertionError("[10d] the schedule differs from the bankless service's")
+    print(f"[10d] simulated schedule (job, start s, finish s, GPUs, violated), equal to a "
+          f"second service's on the CPU with no bank: {key(results)}")
+    print(f"[10d] simulated by the cluster model from LLM_PROFILES (the paper's A100 "
+          f"figures; seconds and dollars of that model, not of this card): summary "
+          f"{svc.summary()}; by tenant {svc.summary_by_tenant()}")
+
+    launches = {n: sum(by_label[n].values()) for n in kernels}
+    print(f"[10] kernel launches by the service's path: {by_label}; plain-version calls "
+          f"{calls}")
+    if any(n <= 0 for n in launches.values()) or any(calls.values()):
+        raise AssertionError(f"[10] a kernel of the service's path was never launched, or a "
+                             f"plain version ran: {launches} {calls}")
+    print(f"[10] front door: {time.perf_counter() - t_phase:.3f} s on {card}")
+    return {"by_label": by_label}
 
 
 def cut_state(model, layers: int):
@@ -2536,7 +2781,7 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
-                 pre: dict) -> list:
+                 pre: dict, service: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -2570,19 +2815,22 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                            train["launches"].get(name)),
                           (rwkv_tune, rtune["launches"].get(name)),
                           (pretraining, pre["launches"].get(name))) if n is not None}
+    svc = lambda name: service["by_label"].get(name, {})
     paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
                      + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
                       **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
-                      **tuning("score_ce")}),
+                      **tuning("score_ce"), **svc("score_ce")}),
         "flash_attention": (rows["flash_attention"] + bwd["rows"]["flash_attention"],
                             {**path("gpt2-base", launches["by_shape"]["flash_attention"]),
-                             **tuning("flash_attention")}),
-        "score_ce_bwd": (bwd["rows"]["score_ce_bwd"], tuning("score_ce_bwd")),
+                             **tuning("flash_attention"), **svc("flash_attention")}),
+        "score_ce_bwd": (bwd["rows"]["score_ce_bwd"],
+                         {**tuning("score_ce_bwd"), **svc("score_ce_bwd")}),
         "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
-                                tuning("flash_attention_bwd")),
+                                {**tuning("flash_attention_bwd"),
+                                 **svc("flash_attention_bwd")}),
         "flash_decode": ([serve], {"qwen2-7b, serve steps": serve["launches"]}),
         "rwkv6_wkv": (rwkv["rows"], {**path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"]),
                                      **tuning("rwkv6_wkv")}),
@@ -2618,10 +2866,11 @@ def main() -> None:
     card = phase_build()
     worst = phase_kernels(dev, args.seed)
     model, bank, results, launches = phase_slice(dev, args.seed)
-    phase_rescore(model, bank, results, args.seed)
+    ref_cpu = phase_rescore(model, bank, results, args.seed)
     rows = phase_times(model, args.seed)
     phase_profile(model, bank, results)
-    del model, bank, results
+    service = phase_service(model, bank, ref_cpu, card, args.seed)
+    del model, bank, results, ref_cpu
     free_card()
     serve = phase_serve(dev, args.seed)
     rwkv = phase_rwkv(dev, args.seed)
@@ -2635,7 +2884,7 @@ def main() -> None:
     mla_serve = phase_mla_serve(dev, args.seed)
 
     kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
-                           pre)
+                           pre, service)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

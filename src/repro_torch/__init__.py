@@ -2,8 +2,10 @@
 
 This package sits beside ``repro`` (the JAX reference) and imports nothing of
 it. Ported so far: the Prompt Bank's lookup path (the model's forward pass,
-Eqn 1's scoring, activation features and the bank) and the decode serve
-step, for dense GQA decoders, the RWKV6 family and the MLA + MoE family.
+Eqn 1's scoring, activation features and the bank), the decode serve step,
+prompt tuning and pretraining, for dense GQA decoders, the RWKV6 family and
+the MLA + MoE family; and the host-only Workload Scheduler (``cluster``,
+``core.jobs``) behind the service front door (``api``).
 Its five kernels, ``score_ce``, ``flash_attention``, ``flash_decode``,
 ``rwkv6_wkv`` and ``mla_decode``, are CUDA C++ under ``kernels/csrc`` and
 are built for ``sm_90a`` at first use.
