@@ -130,10 +130,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    tuned prompts, their activation features and measured ITAs; after
    run_until_idle the bank must have grown by the completed follow-ups
    (origins ".../online") and a lookup on it runs on the card; the
-   simulated schedule must equal a second service's on the CPU with no
-   bank. score_ce and flash_attention must be launched on the lookups, and
+   simulated schedule (telemetry on) must equal a second service's on the
+   CPU with no bank and telemetry off; (e) the telemetry plane's record of
+   the run: completed jobs counted, each routed handle's timeline done with
+   queued and running spans, the SLO-attainment report and the forensics
+   printed, the Chrome trace and JSONL exports written to a temporary
+   directory, the trace validated by `python -m repro_torch.obs --validate`
+   and the JSONL export rendering the same report and forensics; then one
+   routed submit on a second service, its host wall against device busy.
+   score_ce and flash_attention must be launched on the lookups, and
    their backward kernels on the tuning, with no plain version run. The
-   simulated summaries come from LLM_PROFILES, the paper's A100 figures.
+   simulated summaries and reports come from LLM_PROFILES, the paper's A100
+   figures.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -148,9 +156,11 @@ import argparse
 import contextlib
 import gc
 import json
+import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -894,12 +904,13 @@ def phase_service(model, bank, ref_cpu, card: str, seed: int) -> dict:
             return fn(entry)
         return score
 
-    def service(bank_, factory):
+    def service(bank_, factory, telemetry=None):
         return PromptTunerService(SimConfig(max_gpus=16), bank=bank_, score_fn_factory=factory,
-                                  shards=2, elastic=ElasticConfig())
+                                  shards=2, elastic=ElasticConfig(), telemetry=telemetry)
 
-    svc = service(holdout, score_factory)
-    print(f"[10] PromptTunerService (prompttuner, SimConfig(max_gpus=16), 2 shards, elastic) "
+    svc = service(holdout, score_factory, telemetry=True)
+    print(f"[10] PromptTunerService (prompttuner, SimConfig(max_gpus=16), 2 shards, elastic, "
+          f"telemetry on) "
           f"over phase 3's bank less {sorted(requested)}'s own candidates: {len(holdout)} of "
           f"{len(bank.entries)}, {len(holdout.medoid_ids)} clusters; scorer make_score_fn on "
           f"{model.cfg.name} ({model.cfg.num_layers} layers, d={model.cfg.d_model}, "
@@ -1060,10 +1071,28 @@ def phase_service(model, bank, ref_cpu, card: str, seed: int) -> dict:
     if key(cpu_results) != key(results) or cpu_svc.summary() != svc.summary():
         raise AssertionError("[10d] the schedule differs from the bankless service's")
     print(f"[10d] simulated schedule (job, start s, finish s, GPUs, violated), equal to a "
-          f"second service's on the CPU with no bank: {key(results)}")
+          f"second service's on the CPU with no bank and telemetry off: {key(results)}")
     print(f"[10d] simulated by the cluster model from LLM_PROFILES (the paper's A100 "
           f"figures; seconds and dollars of that model, not of this card): summary "
           f"{svc.summary()}; by tenant {svc.summary_by_tenant()}")
+
+    phase_telemetry(svc, results, routed, card)
+
+    # one routed submit, profiled on a second card-backed service with telemetry
+    # on (outside the launch counts: the path was counted above)
+    probe = service(holdout, score_factory, telemetry=True)
+    req, probed = requests[0], []
+    with plain_calls(calls):
+        submit_profile = profile_calls(
+            f"[10] one routed submit ({req.task_id}, {len(holdout)} entries)",
+            lambda: probed.append(probe.submit(req)), warm=1, reps=3, traced=2)
+    if not all(h.routed_through_bank for h in probed):
+        raise AssertionError("[10] the profiled submit was not routed through the bank")
+    busy = ("not measured" if submit_profile["device_ms"] is None else
+            f"{submit_profile['device_ms']:.3f} ms (idle share "
+            f"{submit_profile['idle_share']:.3f})")
+    print(f"[10] one routed submit: host wall {submit_profile['wall_ms']:.3f} ms, device busy "
+          f"{busy}, on {card}")
 
     launches = {n: sum(by_label[n].values()) for n in kernels}
     print(f"[10] kernel launches by the service's path: {by_label}; plain-version calls "
@@ -1073,6 +1102,62 @@ def phase_service(model, bank, ref_cpu, card: str, seed: int) -> dict:
                              f"plain version ran: {launches} {calls}")
     print(f"[10] front door: {time.perf_counter() - t_phase:.3f} s on {card}")
     return {"by_label": by_label}
+
+
+def phase_telemetry(svc, results, routed, card: str) -> None:
+    """Phase 10e: the telemetry plane's record of the service's own run (counters,
+    each routed handle's timeline, the SLO-attainment report, forensics), its
+    exports written to a temporary directory, the Chrome trace validated by
+    ``python -m repro_torch.obs`` and the JSONL export rendering the same report."""
+    from repro_torch.obs import analyze, read_jsonl, render_report
+    from repro_torch.obs.spans import QUEUED, RUNNING
+
+    t0 = time.perf_counter()
+    tel = svc.telemetry
+    counters = tel.summary_counters()
+    completed = sum(1 for r in results if r.completed)
+    print(f"[10e] telemetry counters: {counters}")
+    if counters["jobs_completed"] != completed or counters["jobs_submitted"] != len(results):
+        raise AssertionError(f"[10e] telemetry counted {counters['jobs_completed']} completed of "
+                             f"{counters['jobs_submitted']} submitted; the run completed "
+                             f"{completed} of {len(results)}")
+    for handle, *_ in routed:
+        tl = handle.timeline()
+        phases = {s.phase for s in tl.spans}
+        print(f"[10e] {handle.task_id} timeline: "
+              f"{[(s.phase, s.shard, s.start, s.end) for s in tl.spans]}")
+        if not tl.done or not {QUEUED, RUNNING} <= phases:
+            raise AssertionError(f"[10e] {handle.task_id}'s timeline is not done or lacks the "
+                                 f"queued and running spans: {sorted(phases)}")
+    report = svc.report()
+    print(report)
+    if "attainment" not in report:
+        raise AssertionError("[10e] the report does not state the SLO attainment")
+    forensics = svc.forensics_report()
+    print(forensics.render())
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_obs_") as tmp:
+        trace = tel.export_chrome_trace(str(Path(tmp) / "service.trace.json"))
+        jsonl = tel.export_jsonl(str(Path(tmp) / "service.jsonl"))
+        sizes = {Path(p).name: Path(p).stat().st_size for p in (trace, jsonl)}
+        env = dict(os.environ)
+        env["PYTHONPATH"] = os.pathsep.join(
+            [str(ROOT / "src")] + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+        proc = subprocess.run([sys.executable, "-m", "repro_torch.obs", "--validate", trace],
+                              capture_output=True, text=True, env=env, timeout=300)
+        print(f"[10e] python -m repro_torch.obs --validate: exit {proc.returncode}, "
+              f"{proc.stdout.strip()} {proc.stderr.strip()}")
+        if proc.returncode != 0 or "OK" not in proc.stdout:
+            raise AssertionError("[10e] the exported Chrome trace did not validate")
+        loaded = read_jsonl(jsonl)
+    replay = render_report(loaded["timelines"], loaded["metrics"], bucket=tel.metrics.window)
+    offline = analyze(loaded["timelines"], loaded["audit"])
+    as_json = lambda rep: json.dumps(rep.to_dict(), sort_keys=True, default=float)  # noqa: E731
+    if replay != svc.report() or as_json(offline) != as_json(forensics):
+        raise AssertionError("[10e] the JSONL export renders another report or forensics")
+    print(f"[10e] exports {sizes} bytes; the JSONL export renders the same report and "
+          f"forensics; the report's seconds are simulated by the cluster model from "
+          f"LLM_PROFILES (the paper's A100 figures), not this card's; telemetry read and "
+          f"exported in {time.perf_counter() - t0:.3f} s of host time on {card}")
 
 
 def cut_state(model, layers: int):

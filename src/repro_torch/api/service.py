@@ -36,7 +36,7 @@ bank itself stays agnostic to how scores are produced.
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Optional, Set
+from typing import Callable, Dict, List, Optional, Set, Union
 
 import numpy as np
 
@@ -58,13 +58,9 @@ from repro_torch.core.jobs import (
     SLOClass,
 )
 from repro_torch.core.prompt_bank import PromptBank, PromptEntry
+from repro_torch.obs import Telemetry
 
-from repro_torch.api.types import (
-    OBS_NOT_PORTED,
-    JobHandle,
-    JobResult,
-    SubmitRequest,
-)
+from repro_torch.api.types import JobHandle, JobResult, SubmitRequest
 
 ScoreFn = Callable[[PromptEntry], float]
 
@@ -77,10 +73,11 @@ class PromptTunerService:
     service build one; the default is a single-shard fabric, which is
     float-for-float identical to the pre-fabric engine.
 
-    The telemetry plane (``telemetry=``, ``report``,
-    ``forensics_report`` and ``JobHandle.timeline``) belongs to the
-    port's ``obs/`` layer, a later slice: until it lands, ``telemetry``
-    takes only None or False and the rest raise."""
+    ``telemetry=True`` (or an un-attached :class:`repro_torch.obs.Telemetry`)
+    wires the fleet telemetry plane into the fabric: handles gain
+    ``.timeline()``, and ``service.telemetry`` exposes the metrics
+    registry, audit log, ``report()`` and trace exports. Recording rides
+    the event stream only, so results are identical with it on or off."""
 
     def __init__(
         self,
@@ -94,7 +91,7 @@ class PromptTunerService:
         placement: Optional[str] = None,
         elastic: Optional[ElasticConfig] = None,
         faults: Optional[FaultPlane] = None,
-        telemetry: Optional[bool] = None,
+        telemetry: Optional[Union[bool, Telemetry]] = None,
     ):
         if fabric is not None:
             conflicting = [name for name, given in [
@@ -117,9 +114,17 @@ class PromptTunerService:
                 self.cfg, self.policy_name, shards=shards or 1,
                 placement=placement or "llm-affinity", elastic=elastic,
                 faults=faults)
-        if telemetry is not None and telemetry is not False:
-            raise NotImplementedError(OBS_NOT_PORTED)
-        self.telemetry = None
+        if telemetry is None or telemetry is False:
+            self.telemetry: Optional[Telemetry] = None
+        else:
+            self.telemetry = (Telemetry() if telemetry is True
+                              else telemetry)
+            if not self.telemetry.attached:
+                self.telemetry.attach(self.fabric)
+            elif self.telemetry._fabric is not self.fabric:
+                raise ValueError(
+                    "telemetry= is already attached to a different fabric; "
+                    "use one Telemetry per fabric")
         self.bank = bank
         self.score_fn_factory = score_fn_factory
         self._handles: Dict[int, JobHandle] = {}
@@ -295,9 +300,19 @@ class PromptTunerService:
         return self.sim_result().summary_by_tenant()
 
     def report(self, **kw) -> str:
-        """The telemetry plane's SLO-attainment report: not ported yet."""
-        raise NotImplementedError(OBS_NOT_PORTED)
+        """The telemetry plane's SLO-attainment / queue-depth time-series
+        report (requires ``telemetry=``)."""
+        if self.telemetry is None:
+            raise ValueError("no telemetry recorded: construct the service "
+                             "with telemetry=True (or a Telemetry instance)")
+        return self.telemetry.report(**kw)
 
     def forensics_report(self):
-        """Per-violation blame attribution: not ported yet."""
-        raise NotImplementedError(OBS_NOT_PORTED)
+        """Per-violation blame attribution rolled up fleet-wide — a
+        :class:`repro_torch.obs.forensics.ForensicsReport` answering *why*
+        each violated/shed job missed its SLO (requires
+        ``telemetry=``)."""
+        if self.telemetry is None:
+            raise ValueError("no telemetry recorded: construct the service "
+                             "with telemetry=True (or a Telemetry instance)")
+        return self.telemetry.forensics()

@@ -8,11 +8,6 @@ import numpy as np
 
 from repro_torch.core.jobs import DEFAULT_TENANT, SLOClass
 
-OBS_NOT_PORTED = (
-    "telemetry is not ported yet: the port's obs/ layer (Telemetry, spans, "
-    "forensics, alerts, export, report, metrics) is a later slice; "
-    "construct the service with telemetry=None")
-
 
 @dataclass
 class SubmitRequest:
@@ -74,16 +69,21 @@ class JobHandle:
     initial_prompt: Optional[np.ndarray] = None  # the prompt itself, for tuning
     rejected: bool = False             # tenant quota bounced this submission
     reject_reason: Optional[str] = None
-    # The reference attaches its telemetry plane here; the port's obs/
-    # layer is a later slice, so it stays None. Excluded from
-    # equality/repr.
+    # Attached by a telemetry-enabled service (repro_torch.obs.Telemetry);
+    # identity-only plumbing, excluded from equality/repr.
     telemetry: Optional[object] = field(default=None, repr=False,
                                         compare=False)
 
     def timeline(self):
-        """This job's recorded lifecycle spans: they need the telemetry
-        plane, which is not ported yet."""
-        raise NotImplementedError(OBS_NOT_PORTED)
+        """This job's recorded lifecycle spans
+        (:class:`~repro_torch.obs.spans.JobTimeline`), available when the
+        service was built with ``telemetry=``. Grows as events fold in;
+        complete after ``run_until_idle``."""
+        if self.telemetry is None:
+            raise ValueError(
+                "no telemetry recorded for this job: construct the service "
+                "with telemetry=True (or a repro_torch.obs.Telemetry instance)")
+        return self.telemetry.timeline.timeline(self.job_id)
 
 
 @dataclass(frozen=True)

@@ -54,8 +54,7 @@ JOB_REJECTED = "job_rejected"      # a submission bounced off a tenant quota
 SHARD_RESIZED = "shard_resized"    # autoscaler moved GPUs between shards
 
 # Alert lifecycle kinds, emitted onto the same stream by the obs-layer
-# AlertRules evaluator (the reference's repro.obs.alerts, not yet ported)
-# via ``fabric.announce``. They
+# AlertRules evaluator (repro_torch.obs.alerts) via ``fabric.announce``. They
 # are defined here — not in obs — so the controller (and the future
 # SLO autotuner) can subscribe without a cluster->obs import cycle.
 # ``detail`` starts with the firing rule's name: ``"<rule>: <why>"``.
@@ -143,8 +142,7 @@ class ElasticController:
         self.drains = 0                   # jobs evacuated off warned shards
         self.quarantines = 0              # flapping shards benched
         self.sheds = 0                    # doomed best-effort jobs dropped
-        # Optional decision sink (duck-typed as the reference's
-        # repro.obs.audit.AuditLog, not yet ported):
+        # Optional decision sink (duck-typed as repro_torch.obs.audit.AuditLog):
         # when attached — Telemetry.attach does it — every steal / resize
         # / rejection / reclaim records the ShardHealth inputs it acted
         # on, so control actions stay attributable to recorded signals.

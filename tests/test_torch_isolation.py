@@ -4,8 +4,7 @@
 - entry points raise without a GPU unless the caller passes ``device="cpu"``;
 - a kernel wrapper handed CUDA tensors launches its kernel or raises: it
   never quietly runs the plain version;
-- a family that is not ported yet raises, naming its later slice, and so
-  does the service's telemetry, which waits for the ``obs/`` slice;
+- a family that is not ported yet raises, naming its later slice;
 - ``chip_smoke.py`` imports nothing of ``repro`` and fails without a GPU.
 """
 import ast
@@ -46,7 +45,8 @@ def test_port_imports_neither_jax_nor_repro():
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'repro'))\n"
         "print(len(names), bad)\n"
         "new = {'repro_torch.models.moe', 'repro_torch.kernels.mla_decode',\n"
-        "       'repro_torch.api.service', 'repro_torch.cluster.engine'}\n"
+        "       'repro_torch.api.service', 'repro_torch.cluster.engine',\n"
+        "       'repro_torch.obs', 'repro_torch.obs.forensics'}\n"
         "sys.exit(1 if bad or len(names) < 60 or not new <= set(names) else 0)\n")
     proc = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True,
                           env=_env(), timeout=120)
@@ -271,21 +271,6 @@ def test_unported_families_raise():
     for cfg, slice_name in ((mamba, "Mamba2 slice"), (hybrid, "hybrid"), (vlm, "VLM slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             Model(cfg, device="cpu")
-
-
-def test_service_telemetry_raises_until_obs_is_ported():
-    from repro_torch.api import PromptTunerService, SubmitRequest
-
-    for telemetry in (True, object()):
-        with pytest.raises(NotImplementedError, match="obs/ layer"):
-            PromptTunerService(telemetry=telemetry)
-    svc = PromptTunerService(telemetry=False)
-    assert svc.telemetry is None
-    handle = svc.submit(SubmitRequest(task_id="t", llm="gpt2-base", slo=300.0,
-                                      iters_manual=100, iters_bank=30))
-    for call in (svc.report, svc.forensics_report, handle.timeline):
-        with pytest.raises(NotImplementedError, match="obs/ layer"):
-            call()
 
 
 def test_device_kind_rejects_mixed_devices():

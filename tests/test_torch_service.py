@@ -105,22 +105,22 @@ def request_script(centers, seed=1):
     return waves
 
 
-SERVICES = {  # id -> (side, bank, factory) -> service
-    "one-shard": lambda s, bank, f: s.api.PromptTunerService(
-        s.c.SimConfig(max_gpus=16), bank=bank, score_fn_factory=f),
-    "two-shards-elastic-quota": lambda s, bank, f: s.api.PromptTunerService(
+SERVICES = {  # id -> (side, bank, factory, **service kwargs) -> service
+    "one-shard": lambda s, bank, f, **kw: s.api.PromptTunerService(
+        s.c.SimConfig(max_gpus=16), bank=bank, score_fn_factory=f, **kw),
+    "two-shards-elastic-quota": lambda s, bank, f, **kw: s.api.PromptTunerService(
         s.c.SimConfig(max_gpus=16), bank=bank, score_fn_factory=f, shards=2,
-        elastic=s.c.ElasticConfig(quotas={"acme": s.c.TenantQuota(max_outstanding=3)})),
-    "three-shards-hash-infless-faults": lambda s, bank, f: s.api.PromptTunerService(
+        elastic=s.c.ElasticConfig(quotas={"acme": s.c.TenantQuota(max_outstanding=3)}), **kw),
+    "three-shards-hash-infless-faults": lambda s, bank, f, **kw: s.api.PromptTunerService(
         s.c.SimConfig(max_gpus=12, checkpoint_interval_s=20.0), policy="infless", bank=bank,
         score_fn_factory=f, shards=3, placement="hash", elastic=s.c.ElasticConfig(),
         faults=s.c.FaultPlane(hazard=s.c.HazardConfig(
             crash_rate=40.0, preempt_rate=20.0, slow_rate=20.0, flap_rate=8.0,
-            mean_downtime_s=30.0, horizon_s=300.0), seed=4)),
-    "prebuilt-fabric-edf": lambda s, bank, f: s.api.PromptTunerService(
+            mean_downtime_s=30.0, horizon_s=300.0), seed=4), **kw),
+    "prebuilt-fabric-edf": lambda s, bank, f, **kw: s.api.PromptTunerService(
         fabric=s.c.ClusterFabric(s.c.SimConfig(max_gpus=8), "edf-cold", shards=2),
-        bank=bank, score_fn_factory=f),
-    "no-bank": lambda s, bank, f: s.api.PromptTunerService(s.c.SimConfig(max_gpus=16)),
+        bank=bank, score_fn_factory=f, **kw),
+    "no-bank": lambda s, bank, f, **kw: s.api.PromptTunerService(s.c.SimConfig(max_gpus=16), **kw),
 }
 
 
