@@ -23,7 +23,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    1024, T = 1, 15, 16, 17, 33 and 513 (the bf16 kernel's 16-token
    sub-chunk and its edges), from a zero and a given state, with the
    model's decays, none (logw = 0) and steep ones (logw = -e^4 in every
-   step), and with rows not 16 bytes aligned.
+   step), and with rows not 16 bytes aligned. At head dim 112 (zamba2-7b)
+   too: flash_attention at its lookup shapes (B = 16, MHA 32 heads, S = 33
+   and 513), S = 1 and 65, q_offset > 0, a window edge inside a tile,
+   G = 4, non-causal; flash_decode at its serve shape (B = 8, G = 1, the
+   whole cache and ragged), kv_len 1, 63, 64 and 65, G = 4 and 8, a
+   window, q_pos < kv_len - 1 and empty partitions; score_ce at D = 3584,
+   V = 32000, T = 272 and 7952.
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
@@ -143,6 +149,26 @@ Phases, in order; any failure ends the run with a non-zero exit:
    simulated summaries and reports come from LLM_PROFILES, the paper's A100
    figures.
 
+11. zamba2-7b (run last, after phase 8) at full width and depth, bf16,
+   weights from --seed: 81 Mamba2 layers in 14 segments, one shared
+   attention + MLP block (32 heads of 112) applied after each of the first
+   13, 6.64 B parameters. (a) A bank of 24 tasks x 2 variants = 48
+   candidates in 12 clusters and three lookups (33, 33 and 513 positions),
+   flash_attention launched 13 times an evaluation and score_ce at
+   D = 3584, V = 32000, no plain version run; one evaluation profiled;
+   flash_attention and score_ce timed at its shapes; a PromptTuner.step,
+   which must raise at the flash_attention backward (no hd-112 kernel
+   yet) before any backward launch. (b) Teacher-forced decode of 32
+   tokens against the forward: block by block in bf16 and f32, end to end
+   in f32, and end to end in bf16 within HYBRID_PLAIN_FACTOR of the same
+   gap with both attention kernels replaced by their plain versions. (c) decode_32k with
+   the batch cut from 128 to 8 (13 K/V caches of 32768 tokens, 48.9 GB),
+   its first 32760 slots and the Mamba2 states seeded, 8 serve steps with
+   flash_decode launched 13 times a step and no plain version run;
+   flash_decode timed at that shape; one step profiled. (d) A 7-layer f32
+   cut (6 + 1 Mamba2 layers, one shared application), card against CPU:
+   Eqn-1 scores of 4 candidates, 4 decode steps.
+
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
 (the others under "shapes") and its launches in all and by path and shape;
@@ -205,6 +231,23 @@ DECODE_REL_TOL = {torch.bfloat16: 0.05, torch.float32: 1e-3}
 # bounded on ||decode - forward|| / ||layer increment||. Nothing carries from
 # layer to layer, so only f32 summation order separates the two.
 LAYER_DECODE_TOL = 1e-4
+# zamba2-7b's decode against its forward (phase 11b). tools/hybrid_depth_growth.py,
+# in f32 on the CPU at 81 layers: the decode's and the forward's hidden states
+# part by 3.0e-6 after all 94 blocks at d_model 512 and by 6.5e-6 at 1024,
+# 10 to 60 times one block's gap (5e-8 and 6.6e-7), which stays below 9e-7 in
+# every block. bf16 rounds each block's output to 2^-8, and that gap grows
+# alike through the 94 blocks: the bf16 logits part by about 0.05 on an H100
+# 80GB HBM3, too near DECODE_REL_TOL to be held end to end. So each block is
+# held, fed the forward's own input (LAYER_DECODE_BF16_TOL in bf16,
+# LAYER_DECODE_TOL in f32), and the teacher-forced decode end to end in f32 at
+# DECODE_REL_TOL, 150 times the gap measured at d_model 1024. The bf16 gap end
+# to end is held against a witness: the same decode and forward with
+# flash_attention and flash_decode replaced by their plain versions (f32
+# softmax, P never rounded to bf16) must part by at least 1 / HYBRID_PLAIN_FACTOR
+# of the kernels' gap. Rounding noise that the Mamba2 blocks add (the chained
+# gap is about 9e-3 after the first six blocks, before any attention runs)
+# leaves the two within a factor of each other; a fault of a kernel widens it.
+HYBRID_PLAIN_FACTOR = 2.0
 # Decode logits of the 2-layer f32 cut, card against CPU: both f32, sums of
 # up to 18944 terms in another order.
 F32_LOGIT_TOL = 1e-4
@@ -340,6 +383,7 @@ SCORE_CE_CASES = [  # T, D, V of phase 2's score_ce checks
     (1, 768, 50257), (273, 768, 50257),              # one row; one row past a 128-row tile
     (272, 4096, 65536), (16 * 497, 4096, 65536),    # rwkv6-7b
     (272, 5120, 102400), (16 * 497, 5120, 102400),  # deepseek-v2
+    (272, 3584, 32000), (16 * 497, 3584, 32000),    # zamba2-7b
 ]
 # rwkv6_wkv's checks: B, H, T, decay, start state. The bf16 kernel's
 # sub-chunk is C = 16 tokens: T = 1, C - 1, C, C + 1 and 2C + 1. Decay
@@ -388,6 +432,18 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             (2, 12, 4, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
             (2, 28, 4, 513, 513, 128, {"window": 100}),
             (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
+            # hd 112: zamba2-7b's shared attention (MHA) at its lookup shapes,
+            # and the 64-row tiles' edges, a window, q_offset and G = 4
+            (16, 32, 32, 33, 33, 112, {}),
+            (16, 32, 32, 513, 513, 112, {}),
+            (4, 32, 32, 1, 1, 112, {}),                              # S = 1
+            (4, 32, 32, 65, 65, 112, {}),                            # one row past a tile
+            (2, 32, 8, 1, 513, 112, {"q_offset": 512}),              # G = 4, one row at the end
+            (2, 32, 8, 64, 513, 112, {"q_offset": 449}),
+            (2, 32, 32, 65, 200, 112, {"q_offset": 135, "window": 70}),  # window edge in a tile
+            (2, 32, 8, 513, 513, 112, {"window": 100}),
+            (2, 32, 32, 65, 130, 112, {"causal": False, "kv_len": 100}),
+            (2, 32, 32, 513, 513, 112, {"causal": False}),
         ]
         for B, H, Hkv, S, L, hd, kw in cases:
             kw = {"causal": True, **kw}
@@ -415,6 +471,17 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             (3, 16, 4, 4096, 128, {"kv_len": 4000, "q_pos": 2500}),  # G = 4, q_pos < kv_len - 1
             (2, 28, 4, 4096, 128, {"kv_len": 3000, "window": 1000}),  # window edge inside a tile
             (2, 32, 2, 1000, 128, {"kv_len": 900}),                  # G = 16: two head groups
+            # hd 112: zamba2-7b's serve shape (B = 8, MHA: G = 1), the whole
+            # cache and ragged, the chunk and tile edges, G = 4 and 8
+            (8, 32, 32, 32768, 112, {"kv_len": 32768}),
+            (8, 32, 32, 32768, 112, {"kv_len": 20001}),
+            (3, 32, 32, 512, 112, {"kv_len": 1}),
+            (3, 32, 32, 512, 112, {"kv_len": 63}),
+            (3, 32, 32, 512, 112, {"kv_len": 64}),
+            (3, 32, 4, 512, 112, {"kv_len": 65}),                    # G = 8
+            (3, 32, 8, 4096, 112, {"kv_len": 4000, "q_pos": 2500}),  # G = 4, q_pos < kv_len - 1
+            (2, 32, 32, 4096, 112, {"kv_len": 3000, "window": 1000}),  # window edge in a tile
+            (2, 32, 32, 4096, 112, {"kv_len": 5, "q_pos": 3, "splits": 8}),  # empty partitions
         ]
         for B, H, Hkv, L, hd, kw in decode_cases:
             q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
@@ -1220,6 +1287,28 @@ def teacher_forced(label: str, model, tokens: torch.Tensor) -> float:
     if not torch.isfinite(dec).all() or not rel <= tol:
         raise AssertionError(f"{label} decode disagrees with the forward pass")
     return rel
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Routes the model's flash_attention and flash_decode calls through
+    their plain versions, on the card too: full f32 softmax and P·V, P
+    never rounded to bf16."""
+    from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.kernels import ops
+
+    def decode(q, k, v, *, splits=None, **kw):
+        return fd_mod.flash_decode_plain(
+            q, k, v, splits=fd_mod.DEFAULT_SPLITS if splits is None else splits, **kw)
+
+    saved = ops.flash_attention, ops.flash_decode
+    ops.flash_attention = lambda q, k, v, **kw: fa_mod.flash_attention_plain(q, k, v, **kw)
+    ops.flash_decode = decode
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_decode = saved
 
 
 @contextlib.contextmanager
@@ -2101,6 +2190,380 @@ def phase_mla_serve(dev: torch.device, seed: int) -> dict:
     return out
 
 
+# -- phase 11 -------------------------------------------------------------------
+
+# decode_32k's batch of 128 cut to 8: each of zamba2-7b's 13 shared-attention
+# applications keeps its own K/V cache, 2 x 32768 x 32 x 112 x 2 B = 470 MB a
+# row, 48.9 GB at batch 8 beside 13.3 GB of weights (98 GB at batch 16).
+HYBRID_SERVE_BATCH = 8
+HYBRID_CUT_LAYERS = 7          # 6 + 1 Mamba2 layers: one shared-attention application
+
+
+def attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, dev) -> dict:
+    """flash_attention in bf16, causal at S = L: the kernel, its plain
+    version, one SDPA call and the bound (the live pairs' operations, q, k,
+    v and the output moved once)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(4.0 * B * H * pairs * hd,
+                       (2 * B * H + 2 * B * Hkv) * S * hd * q.element_size(), PEAK_BF16_FLOPS)
+    row = {"shape": f"B={B} H={H} Hkv={Hkv} S=L={S} hd={hd} causal bf16",
+           "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=5),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=H != Hkv)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"{label} flash_attention {row['shape']}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
+          f"{b_ms:.4f} ms ({b_by})")
+    kernel_launches(f"{label} flash_attention S={S} hd={hd}",
+                    lambda: flash_attention(q, k, v, causal=True))
+    return row
+
+
+def hybrid_depth_witness(label: str, model, tokens: torch.Tensor) -> dict:
+    """Decode against the forward through a hybrid's depth, block by block
+    (each Mamba2 layer, then each shared-attention application).
+
+    Per block: its one-token decode steps fed the forward's own input to
+    that block, against its forward output, as ||dec - fwd|| / ||the
+    block's increment||; nothing carries from block to block. Through
+    depth: the teacher-forced decode chained block after block (each fed
+    the previous block's decode), against the forward's hidden state after
+    the same block, as ||dec - fwd|| / ||fwd||: how the two computations'
+    difference of summation order and rounding grows with depth. At the
+    end the logits of the chained decode (the whole teacher-forced decode)
+    against the forward's."""
+    from repro_torch.models.common import unembed
+    from repro_torch.models.transformer import block_cache, block_decode
+
+    cfg, (B, S) = model.cfg, tokens.shape
+
+    def decoder(kind: str, block):
+        if kind == "mamba":
+            cache = block_cache(cfg, "mamba", B, S, model.device)
+            return lambda xt, t: block_decode(cfg, "mamba", block, xt, cache, t)
+        cache = block_cache(cfg, "dense", B, S, model.device)
+        return lambda xt, t: block.decode(xt, cache, t)
+
+    def steps(step, x):
+        return torch.cat([step(x[:, t:t + 1], t) for t in range(S)], dim=1)
+
+    names, layer_gaps, depth = [], [], []
+    with torch.no_grad():
+        x, positions = model.embed_inputs(tokens)
+        xd = x
+        for si, seg in enumerate(model.segments):
+            blocks = [(f"{seg.name}.{i}", "mamba", b)
+                      for i, b in enumerate(getattr(model, seg.name))]
+            if model._shared_after(si):
+                blocks.append((f"shared_attn/app{si}", "shared", model.shared_attn))
+            for name, kind, block in blocks:
+                y = block(x, positions)
+                layer_gaps.append(((steps(decoder(kind, block), x) - y).norm()
+                                   / (y - x).norm()).item())
+                xd = steps(decoder(kind, block), xd)
+                depth.append(rel_gap(xd, y))
+                names.append(name)
+                x = y
+        head = lambda h: unembed(cfg, model.embedding, model.unembed, model.final_norm(h))
+        logits_gap = rel_gap(head(xd), head(x))
+    worst = int(np.argmax(layer_gaps))
+    marks = [i for i in (1, 2, 6, 7, 12, 24, 48, 72, len(names)) if i <= len(names)]
+    print(f"{label} {len(names)} blocks ({cfg.num_layers} Mamba2 layers, "
+          f"{len(names) - cfg.num_layers} shared-attention applications), {model.dtype}, {S} "
+          f"tokens x {B} rows. Per block, decode fed the forward's input against the forward, "
+          f"||dec - fwd|| / ||increment||: max {layer_gaps[worst]:.3e} at {names[worst]}; "
+          f"after blocks {marks}: {[f'{layer_gaps[i - 1]:.2e}' for i in marks]}")
+    print(f"{label} chained decode against the forward, hidden state ||dec - fwd|| / ||fwd|| "
+          f"after blocks {marks}: {[f'{depth[i - 1]:.2e}' for i in marks]}; logits "
+          f"{logits_gap:.3e}")
+    return {"layer_gap_max": layer_gaps[worst], "layer_gaps": layer_gaps, "depth": depth,
+            "names": names, "logits_gap": logits_gap}
+
+
+def phase_hybrid(dev: torch.device, seed: int) -> dict:
+    """zamba2-7b (Mamba2 + one shared attention block) at full width and
+    depth, bf16, weights from --seed."""
+    from repro_torch.config import INPUT_SHAPES, TuneConfig
+    from repro_torch.configs import get_config
+    from repro_torch.core import build_bank, make_score_fn
+    from repro_torch.data import LoaderConfig, TaskLoader, make_tasks
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
+    from repro_torch.kernels.score_ce import score_ce
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import Model, prompt_from_arrays
+    from repro_torch.models.ssm import mamba2_dims
+    from repro_torch.tuning import PromptTuner
+
+    cfg = get_config("zamba2-7b")                       # full width and depth, bf16
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    H, Hkv, hd, V = cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size
+    d_inner, mh, mhd = mamba2_dims(cfg)
+    apps = len(model.segments) - 1
+    print(f"[11] {cfg.name}: {cfg.num_layers} Mamba2 layers in {len(model.segments)} segments "
+          f"(d={cfg.d_model}, d_inner {d_inner}, {mh} heads of {mhd}, state "
+          f"{cfg.ssm.state_size}, chunk {cfg.ssm.chunk_size}, conv {cfg.ssm.conv_width}), "
+          f"shared attention ({H} heads of {hd}, Hkv={Hkv}, SwiGLU d_ff {cfg.d_ff}) applied "
+          f"{apps} times, V={V} tied, {cfg.dtype}; {n_params / 1e9:.3f} B parameters, "
+          f"{weight_gb:.2f} GB of weights, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated on the card; drawn from seed {seed} in {time.perf_counter() - t0:.1f} s")
+
+    # (a) the Prompt Bank lookup
+    tune_cfg = TuneConfig(prompt_len=16)
+    tasks = make_tasks(vocab=32, partitions=2)          # 12 families x 2 = 24 tasks
+    rng = np.random.default_rng(seed)
+    d = cfg.d_model
+    seed_prompts = {t.task_id: rng.normal(0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d))
+                    .astype(np.float32) for t in tasks}
+    requests = [tasks[3], tasks[14],
+                make_tasks(input_len=248, target_len=248)[9]]   # 33, 33, 513 positions
+    kernels = {"flash_attention": flash_attention, "score_ce": score_ce}
+    by_shape = {name: {} for name in kernels}
+    flash_attention.launches = score_ce.launches = 0
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with plain_calls(calls):
+        with counted(kernels, by_shape, "bank build"):
+            bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
+        torch.cuda.synchronize()
+        print(f"[11a] bank: {len(bank.entries)} candidates (24 tasks x 2 variants), "
+              f"{len(bank.medoid_ids)} clusters, features + clustering "
+              f"{time.perf_counter() - t0:.3f} s")
+        if len(bank.entries) != 48 or len(bank.medoid_ids) != 12:
+            raise AssertionError("bank does not hold 48 candidates in 12 clusters")
+        results = []
+        for task in requests:
+            score_fn = make_score_fn(model, task, tune_cfg)
+            positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
+            with counted(kernels, by_shape, eval_shape(score_fn, positions)):
+                res = bank.lookup(score_fn)
+            if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
+                raise AssertionError(f"lookup for {task.task_id} gave {res}")
+            print(f"[11a] request {task.task_id} ({positions} positions): "
+                  f"origin={res.entry.origin} score={res.score:.6f} "
+                  f"evaluations={res.evaluations} latency={res.latency_s:.3f} s")
+            results.append((task, res, score_fn))
+        task, res, score_fn = results[0]
+        before = flash_attention.launches
+        score_fn(res.entry)
+        per_eval = flash_attention.launches - before
+    launches = {"flash_attention": flash_attention.launches, "score_ce": score_ce.launches}
+    print(f"[11a] kernel launches on the lookup path: {launches}; by shape {by_shape}; "
+          f"flash_attention (hd {hd}) launches per evaluation {per_eval}; plain-version "
+          f"calls {calls}")
+    if any(n <= 0 for n in launches.values()) or any(calls.values()):
+        raise AssertionError("[11a] a kernel was never launched on the zamba2-7b lookup path, "
+                             f"or a plain version ran: {launches} {calls}")
+    if per_eval != apps:
+        raise AssertionError(f"[11a] flash_attention launched {per_eval} times an evaluation, "
+                             f"not {apps}")
+    profiles = [profile_calls(f"[11a] one {cfg.name} evaluation at "
+                              f"{16 + sf.eval_batch['tokens'].shape[1]} positions",
+                              lambda: sf(r.entry), warm=2, reps=5, traced=2)
+                for _, r, sf in results[:1]]
+    gen = torch.Generator(device=dev).manual_seed(seed + 5)
+    fa_rows = [attention_row("[11a]", 16, H, Hkv, S, hd, gen, dev) for S in (33, 513)]
+    fa_rows[0].update(launches_per_eval=per_eval)
+    score_rows = score_ce_rows("[11a]", cfg.name, model.output_embedding().detach(),
+                               (16 * 17, 16 * 497), gen)
+
+    # a tuning step reaches the flash_attention backward at hd 112, which
+    # has no kernel yet: it must raise there, with no plain backward run
+    tuner = PromptTuner(model, TuneConfig())
+    loader = TaskLoader(synthetic_task(), LoaderConfig(batch_size=2, seed=seed))
+    prompt = prompt_from_arrays({"soft_prompt": seed_prompts[tasks[0].task_id]}, dev)
+    before, calls = flash_attention_bwd.launches, {}
+    try:
+        with plain_calls(calls):
+            tuner.step(prompt, tuner.init_opt(prompt), next(loader))
+    except NotImplementedError as e:
+        message = str(e)
+    else:
+        raise AssertionError("[11a] a zamba2-7b tuning step ran: flash_attention_bwd at hd "
+                             f"{hd} should have raised")
+    if (flash_attention_bwd.launches != before or any(calls.values())
+            or "zamba2-7b tuning slice" not in message):
+        raise AssertionError(f"[11a] the tuning step did not stop at the backward's check: "
+                             f"{message!r}, launches {flash_attention_bwd.launches - before}, "
+                             f"plain calls {calls}")
+    print(f"[11a] PromptTuner.step raised before any flash_attention_bwd launch: {message}")
+    del tuner, prompt
+    free_card()
+
+    # (b) decode against the forward pass: block by block in bf16 and f32, end
+    # to end in f32, and end to end in bf16 against the plain attention's gap
+    # (see the note above F32_LOGIT_TOL)
+    tokens = torch.randint(3, V, (2, 32), generator=gen, device=dev)
+    decode_rel, witness, calls = {}, {}, {}
+    for route in ("kernels", "plain"):
+        before = flash_attention.launches, flash_decode.launches
+        with plain_calls(calls), (plain_attention() if route == "plain"
+                                  else contextlib.nullcontext()):
+            dec, full = teacher_forced_logits(model, tokens)
+            decode_rel[route] = rel_gap(dec, full)
+            witness[route] = hybrid_depth_witness(f"[11b] {route}:", model, tokens)
+        ran = (flash_attention.launches - before[0], flash_decode.launches - before[1],
+               calls["flash_attention_plain"], calls["flash_decode_plain"])
+        print(f"[11b] {route}: teacher-forced decode of {tokens.shape[1]} tokens x "
+              f"{tokens.shape[0]} rows in bf16 against the forward, end to end: ||dec - fwd|| / "
+              f"||fwd|| = {decode_rel[route]:.3e}, argmax agreement "
+              f"{(dec.argmax(-1) == full.argmax(-1)).float().mean().item():.3f}; launches "
+              f"(flash_attention, flash_decode) {ran[:2]}, plain calls {ran[2:]}")
+        kernels, plain = ran[:2], ran[2:]
+        if route == "plain":
+            kernels, plain = plain, kernels
+        if min(kernels) <= 0 or max(plain) > 0:
+            raise AssertionError(f"[11b] the {route} route ran the wrong attention: {ran}")
+        calls.clear()
+        del dec, full
+    shared = {route: max(g for n, g in zip(w["names"], w["layer_gaps"])
+                         if n.startswith("shared_attn")) for route, w in witness.items()}
+    print(f"[11b] bf16 end to end, kernels {decode_rel['kernels']:.3e} against plain "
+          f"{decode_rel['plain']:.3e}: ratio {decode_rel['kernels'] / decode_rel['plain']:.3f} "
+          f"(tol {HYBRID_PLAIN_FACTOR}); shared-attention blocks, largest per-block gap: "
+          f"kernels {shared['kernels']:.3e}, plain {shared['plain']:.3e}")
+    if not (torch.isfinite(torch.tensor(list(decode_rel.values()))).all()
+            and decode_rel["kernels"] <= HYBRID_PLAIN_FACTOR * decode_rel["plain"]):
+        raise AssertionError(f"[11b] zamba2-7b's bf16 decode parts from the forward by "
+                             f"{decode_rel['kernels']:.3e} with the kernels, more than "
+                             f"{HYBRID_PLAIN_FACTOR} x the plain versions' {decode_rel['plain']:.3e}")
+    witness["bf16"] = witness.pop("kernels")
+    f32 = Model(cfg.with_overrides(dtype="float32", param_dtype="float32"), device=dev,
+                seed=None)
+    f32.load_state_dict(model.state_dict())               # the same weights, widened
+    witness["f32"] = hybrid_depth_witness("[11b]", f32, tokens)
+    witness["f32_decode_rel"] = teacher_forced("[11b] f32", f32, tokens)
+    del f32
+    free_card()
+    if not (witness["bf16"]["layer_gap_max"] <= LAYER_DECODE_BF16_TOL
+            and witness["f32"]["layer_gap_max"] <= LAYER_DECODE_TOL):
+        raise AssertionError(f"[11b] zamba2-7b decode disagrees with the forward within a block "
+                             f"(bf16 {witness['bf16']['layer_gap_max']:.3e}, tol "
+                             f"{LAYER_DECODE_BF16_TOL}; f32 {witness['f32']['layer_gap_max']:.3e}, "
+                             f"tol {LAYER_DECODE_TOL})")
+
+    # (c) serve steps against a full decode_32k cache, batch cut to 8
+    shape = INPUT_SHAPES["decode_32k"]
+    B, L = HYBRID_SERVE_BATCH, shape.seq_len
+    per_row = apps * 2 * L * Hkv * hd * 2
+    cache = model.init_cache(B, L)
+    state_gb = sum(t.numel() * t.element_size() for seg in model.segments
+                   for t in cache[seg.name]["state"].values()) / 1e9
+    print(f"[11c] {shape.name}: cache of {L} tokens, batch {shape.global_batch} -> {B} "
+          f"(cut: {apps} shared-attention K/V caches of {per_row / 1e9:.3f} GB a row, "
+          f"{per_row * B / 1e9:.1f} GB at batch {B}, {per_row * 16 / 1e9:.1f} GB at 16, "
+          f"{per_row * shape.global_batch / 1e9:.0f} GB at {shape.global_batch}); Mamba2 states "
+          f"{state_gb:.2f} GB; {torch.cuda.memory_allocated(dev) / 1e9:.1f} GB allocated")
+    filled = L - 8                                      # a fixture: seeded K/V at 0..32759
+    for app in cache["shared_attn"].values():
+        kv = app["kv"]
+        kv["k"][:, :filled].normal_(generator=gen)
+        kv["v"][:, :filled].normal_(generator=gen)
+        kv["pos"][:, :filled] = torch.arange(filled, device=dev, dtype=torch.int32)
+    for seg in model.segments:                          # and seeded Mamba2 states
+        for t in cache[seg.name]["state"].values():
+            t.normal_(generator=gen)
+    serve = make_serve_step(model)
+    tok = torch.randint(3, V, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_steps, step_s, calls = L - filled, [], {}
+    flash_decode.launches = 0
+    with plain_calls(calls):
+        for i in range(n_steps):
+            t = time.perf_counter()
+            tok, cache = serve(cache, tok, filled + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    dlaunches = flash_decode.launches
+    if dlaunches != apps * n_steps or any(calls.values()):
+        raise AssertionError(f"[11c] flash_decode launched {dlaunches} times in {n_steps} serve "
+                             f"steps, not {apps} a step, or a plain version ran: {calls}")
+    if not ((tok >= 0) & (tok < V)).all():
+        raise AssertionError("[11c] serve step produced tokens outside the vocabulary")
+    med = statistics.median(step_s[1:])
+    print(f"[11c] {n_steps} serve steps at cache_len {filled}..{L - 1}: "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms; median (steps 2..) {med * 1e3:.2f} ms "
+          f"per step, {B / med:.0f} tokens/s; flash_decode launches {dlaunches} "
+          f"({dlaunches // n_steps} per step); plain-version calls {calls}")
+    live = L - 1
+    kv = cache["shared_attn"]["app0"]["kv"]
+    k, v = kv["k"].transpose(1, 2), kv["v"].transpose(1, 2)
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(k.dtype)
+    b_ms, b_by = decode_bound(B, H, Hkv, hd, live, k.element_size())
+    splits = auto_splits(B, Hkv, H // Hkv, live,
+                         torch.cuda.get_device_properties(dev).multi_processor_count)
+    decode_row = {
+        "shape": f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} kv_len={live} {cfg.dtype}, "
+                 f"{splits} splits",
+        "ms": time_ms(lambda: flash_decode(q, k, v, kv_len=live)),
+        "plain_ms": time_ms(lambda: flash_decode_plain(q, k, v, kv_len=live), reps=5),
+        "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+            q[:, :, None], k, v, enable_gqa=H != Hkv)),
+        "bound_ms": b_ms, "bound_by": b_by, "launches": dlaunches,
+        "launches_per_step": dlaunches // n_steps}
+    print(f"[11c] flash_decode {decode_row['shape']}: kernel {decode_row['ms']:.4f} ms, plain "
+          f"{decode_row['plain_ms']:.4f} ms, library (SDPA over all {L} rows) "
+          f"{decode_row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernel_launches(f"[11c] flash_decode {decode_row['shape']}",
+                    lambda: flash_decode(q, k, v, kv_len=live))
+    serve_profile = profile_calls(f"[11c] one serve step at batch {B}, cache {live}",
+                                  lambda: serve(cache, tok, live), warm=1, reps=3, traced=1)
+    decode_row.update(step_ms=med * 1e3, tokens_per_s=B / med, decode_rel=decode_rel,
+                      witness=witness)
+    del cache, kv, k, v, q
+    free_card()
+
+    # (d) a 7-layer cut of the same weights in f32, card against CPU
+    state = cut_state(model, HYBRID_CUT_LAYERS)
+    entries = [res.entry] + [bank.entries[i] for i in bank.medoid_ids
+                             if bank.entries[i] is not res.entry][:3]
+    del model, serve, bank, results, score_fn
+    free_card()
+    card, cpu = depth_cut(state, dev)
+    del state
+    print(f"[11d] {HYBRID_CUT_LAYERS}-layer f32 cut: segments "
+          f"{[(s.name, s.count) for s in card.segments]}, shared attention applied "
+          f"{len(card.segments) - 1} time(s)")
+    failed, worst_score = [], 0.0
+    for entry in entries:
+        c = make_score_fn(cpu, task, tune_cfg)(entry)
+        g = make_score_fn(card, task, tune_cfg)(entry)
+        rel = abs(g - c) / abs(c)
+        worst_score = max(worst_score, rel)
+        print(f"[11d] {task.task_id} {entry.origin}: cpu f32 {c:.6f}, card f32 {g:.6f} "
+              f"(rel {rel:.2e}, tol {F32_SCORE_RTOL})")
+        if not rel <= F32_SCORE_RTOL:
+            failed.append(entry.origin)
+    tokens = torch.randint(3, V, (2, 4), generator=gen, device=dev)
+    cc, gcache = cpu.init_cache(2, 8), card.init_cache(2, 8)
+    worst = 0.0
+    for t in range(tokens.shape[1]):
+        lg, _ = card.decode_step(gcache, tokens[:, t:t + 1], t)
+        lc, _ = cpu.decode_step(cc, tokens[:, t:t + 1].cpu(), t)
+        worst = max(worst, check_close(f"[11d] decode step {t}, card f32 against CPU f32",
+                                       lg.cpu(), lc, F32_LOGIT_TOL))
+    print(f"[11d] {HYBRID_CUT_LAYERS}-layer f32 cut: 4 decode steps, card (kernels) against CPU "
+          f"(plain versions): max abs logit diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    del card, cpu
+    free_card()
+    if failed:
+        raise AssertionError(f"[11d] zamba2-7b card scores disagree with the CPU f32 path for "
+                             f"{failed}")
+    return {"by_shape": by_shape, "launches": launches, "profiles": profiles,
+            "fa_rows": fa_rows, "score_rows": score_rows, "decode_row": decode_row,
+            "serve_profile": serve_profile, "cut_score_rel": worst_score, "cut_logit": worst}
+
+
 # -- phase 9 --------------------------------------------------------------------
 
 # flash_attention's backward checks: B, H, Hkv, S, L, hd, kwargs (causal
@@ -2353,15 +2816,18 @@ def backward_times(dev: torch.device, gen) -> dict:
 @contextlib.contextmanager
 def plain_calls(calls: dict):
     """Counts the calls of the plain versions of score_ce, flash_attention,
-    rwkv6_wkv and their backwards inside the block, into ``calls``: on the
-    card's main path every one must stay 0."""
+    rwkv6_wkv and their backwards, and of flash_decode and its combine,
+    inside the block, into ``calls``: on the card's main path every one must
+    stay 0."""
     from repro_torch.kernels import flash_attention as fa_mod
+    from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import rwkv_wkv as rw_mod
     from repro_torch.kernels import score_ce as sc_mod
 
     names = [(sc_mod, "score_ce_plain"), (sc_mod, "score_ce_bwd_plain"),
              (fa_mod, "flash_attention_plain"), (fa_mod, "flash_attention_bwd_plain"),
-             (rw_mod, "rwkv6_wkv_plain"), (rw_mod, "rwkv6_wkv_bwd_plain")]
+             (rw_mod, "rwkv6_wkv_plain"), (rw_mod, "rwkv6_wkv_bwd_plain"),
+             (fd_mod, "flash_decode_plain"), (fd_mod, "combine_partials_plain")]
     saved = {name: getattr(mod, name) for mod, name in names}
 
     def counting(name):
@@ -2866,7 +3332,7 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
-                 pre: dict, service: dict) -> list:
+                 pre: dict, service: dict, hybrid: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -2903,20 +3369,25 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
     svc = lambda name: service["by_label"].get(name, {})
     paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
-                     + bwd["rows"]["score_ce"],
+                     + hybrid["score_rows"] + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
                       **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
+                      **path("zamba2-7b", hybrid["by_shape"]["score_ce"]),
                       **tuning("score_ce"), **svc("score_ce")}),
-        "flash_attention": (rows["flash_attention"] + bwd["rows"]["flash_attention"],
+        "flash_attention": (rows["flash_attention"] + hybrid["fa_rows"]
+                            + bwd["rows"]["flash_attention"],
                             {**path("gpt2-base", launches["by_shape"]["flash_attention"]),
+                             **path("zamba2-7b", hybrid["by_shape"]["flash_attention"]),
                              **tuning("flash_attention"), **svc("flash_attention")}),
         "score_ce_bwd": (bwd["rows"]["score_ce_bwd"],
                          {**tuning("score_ce_bwd"), **svc("score_ce_bwd")}),
         "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
                                 {**tuning("flash_attention_bwd"),
                                  **svc("flash_attention_bwd")}),
-        "flash_decode": ([serve], {"qwen2-7b, serve steps": serve["launches"]}),
+        "flash_decode": ([serve, hybrid["decode_row"]],
+                         {"qwen2-7b, serve steps": serve["launches"],
+                          "zamba2-7b, serve steps": hybrid["decode_row"]["launches"]}),
         "rwkv6_wkv": (rwkv["rows"], {**path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"]),
                                      **tuning("rwkv6_wkv")}),
         "rwkv6_wkv_bwd": (rtune["rows"], tuning("rwkv6_wkv_bwd")),
@@ -2967,9 +3438,11 @@ def main() -> None:
     free_card()
     mla = phase_mla_kernel(dev, args.seed)
     mla_serve = phase_mla_serve(dev, args.seed)
+    free_card()
+    hybrid = phase_hybrid(dev, args.seed)
 
     kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
-                           pre, service)
+                           pre, service, hybrid)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

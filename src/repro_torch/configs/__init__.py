@@ -1,6 +1,7 @@
 """Configurations of the models the port runs so far: dense GQA decoders
 (the paper's gpt2-base, gpt2-large and vicuna-7b among them), the RWKV6
-family and the MLA + MoE family.
+family, the MLA + MoE family and the Zamba2 hybrid (Mamba2 + shared
+attention).
 
 ``get_config(arch)`` returns the full configuration, ``smoke_config(arch)``
 the reduced variant the CPU tests use (2 layers, d_model 256), and
@@ -21,6 +22,7 @@ from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
 from repro_torch.configs.vicuna_7b import vicuna_7b
+from repro_torch.configs.zamba2_7b import zamba2_7b
 
 _REGISTRY: Dict[str, Callable[[], ModelConfig]] = {}
 
@@ -32,7 +34,7 @@ def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:
 
 
 for _fn in (deepseek_v2_236b, gpt2_base, gpt2_large, kimi_k2_1t_a32b, qwen2_7b, rwkv6_7b,
-            vicuna_7b):
+            vicuna_7b, zamba2_7b):
     register(_fn)
 
 
@@ -51,10 +53,10 @@ def smoke_config(arch: str) -> ModelConfig:
     gets 3 layers (1 dense + 2 MoE), 4 experts, top-2, at most 1 shared
     expert of width 128; MLA gets ranks (kv 64, q 48) and head dims (nope
     32, rope 16, v 32); an SSM gets state 32, chunk 16 and (RWKV: d_model /
-    state) 8 heads.
+    state) 8 heads, a hybrid 4 attention heads, 5 layers and shared
+    attention every 2 (three Mamba2 segments, two applications).
 
-    The reduction rules for hybrid and encoder-decoder models come with
-    those families."""
+    The reduction rule for encoder-decoder models comes with that family."""
     cfg = get_config(arch)
     kw: dict = dict(
         d_model=256,
@@ -79,6 +81,9 @@ def smoke_config(arch: str) -> ModelConfig:
         kw["ssm"] = dataclasses.replace(
             cfg.ssm, state_size=32, num_heads=0, chunk_size=16, expand=2)
         kw["num_heads"] = 8 if cfg.arch_type == "ssm" else 4   # rwkv: d / state
+    if cfg.hybrid is not None:
+        kw["num_layers"] = 5
+        kw["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=2)
     if cfg.mla is not None:
         kw["mla"] = dataclasses.replace(
             cfg.mla, kv_lora_rank=64, q_lora_rank=48, qk_nope_head_dim=32,

@@ -39,7 +39,16 @@
 //     tiles, rounded to bf16, are the A operand of m16n8k16 (warp_tile.cuh);
 //     V's fragments come from its row-major tile by ldmatrix.trans. P is
 //     rounded to bf16 as the reference's XLA path rounds it to v's dtype.
-// Shared memory: hd = 64 45 KB, hd = 128 85 KB.
+// Shared memory: hd = 64 45 KB, hd = 112 75 KB, hd = 128 85 KB.
+//
+// Head dims 64, 112 (zamba2-7b's shared attention) and 128 are
+// instantiated. hd = 112 is 7 k-steps of 16 in Q·Kᵀ and 14 n8 tiles of
+// output, taken in pairs by ldmatrix.x4.trans in P·V (14 is even); the
+// 7 k-steps are taken one at a time, so nothing pairs them. A row is
+// HD + 8 = 120 elements, 240 bytes: 16-byte aligned for cp.async and
+// ldmatrix, and eight rows 60 words apart start on banks 0, 28, 24, ..., 4,
+// so an ldmatrix phase has no bank conflict. The f32 kernel needs hd % 4
+// == 0 (float4 rows) and hd % 8 == 0 (n8 output tiles); 112 is both.
 //
 // Both element types can also write each row's log-sum-exp (a null pointer
 // writes nothing; the output is the same either way), which the backward in
@@ -73,6 +82,7 @@ struct Strides { long long b, h, s; };   // in elements; the last dim is contigu
 // distinct banks and keep every row 16-byte aligned.
 template <int HD>
 struct TcLayout {
+  static_assert(HD % 16 == 0 && (HD / 8) % 2 == 0, "k-steps of 16, n8 output tiles in pairs");
   static constexpr int LD = HD + 8;
   static constexpr int TILE = kColsK * LD;
   static constexpr int bytes = 2 * (kRowsQ * LD + 2 * 2 * TILE);
@@ -444,7 +454,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, 
 // contiguous: each row's natural log-sum-exp of its scaled live scores
 // (below -1e29 for a row with no live column). Returns cudaGetLastError()
 // after the launch (0 on success), or cudaErrorInvalidValue for a head dim
-// without a template.
+// without a template (64, 112 and 128 have one).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_b, long long q_h, long long q_s, long long k_b, long long k_h, long long k_s,
@@ -456,6 +466,9 @@ extern "C" int flash_attention_launch(
   if (head_dim == 64)
     return launch_hd<64>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
                          is_bf16, scale, s);
+  if (head_dim == 112)
+    return launch_hd<112>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
+                          is_bf16, scale, s);
   if (head_dim == 128)
     return launch_hd<128>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
                           is_bf16, scale, s);

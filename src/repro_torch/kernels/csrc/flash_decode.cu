@@ -55,6 +55,14 @@
 // every query head and accumulator in registers, and the block's row slots
 // are merged in shared memory (Hopper's tensor cores take f32 only as
 // TF32). Scores, softmax sums and accumulators are f32 in both.
+//
+// Head dims 64, 112 (zamba2-7b's shared attention) and 128 are
+// instantiated. bf16 at hd = 112: 7 k-steps of 16 in Q·Kᵀ, 14 n8 output
+// tiles taken in pairs in P·V, rows of 120 elements (240 bytes, 16-byte
+// aligned, eight rows on distinct banks), 90 KB a block. f32 at hd = 112: a
+// row takes 28 lanes of 4 values, so a warp holds one row in a group of 32
+// lanes; lanes 28..31 load nothing, add zeros into the row's shuffle sum
+// and write nothing.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -79,9 +87,10 @@ constexpr int kHeads = 8;      // query heads a block handles (A rows 0..7)
 // Shared memory: per warp a ring of kStages slots, each a K and a V chunk
 // [16][LD]. LD = hd + 8: 16 bytes of padding put the eight rows of an
 // ldmatrix on distinct banks. hd = 128: 102 KB a block, two blocks an SM;
-// hd = 64: 54 KB, four.
+// hd = 112: 90 KB, two; hd = 64: 54 KB, four.
 template <int HD>
 struct TcLayout {
+  static_assert(HD % 16 == 0 && (HD / 8) % 2 == 0, "k-steps of 16, n8 output tiles in pairs");
   static constexpr int LD = HD + 8;
   static constexpr int CHUNK = kChunk * LD;            // elements
   static constexpr int RING = kStages * 2 * CHUNK;     // elements, one warp's
@@ -266,12 +275,16 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 // -- f32: CUDA cores -------------------------------------------------------------
 
-// HD: head dim; GT: query heads handled by one block.
+// HD: head dim; GT: query heads handled by one block. A row's LPR lanes
+// sit in a group of GROUP lanes, the power of two the shuffle sum spans;
+// the group's last GROUP - LPR lanes are idle (4 at hd = 112, none at 64
+// or 128).
 template <int HD, int GT>
 struct Shape {
   static constexpr int VEC = 4;                     // elements per lane
-  static constexpr int LPR = HD / VEC;              // lanes per row
-  static constexpr int RPW = 32 / LPR;              // rows a warp holds at once
+  static constexpr int LPR = HD / VEC;              // lanes that hold a row's values
+  static constexpr int GROUP = LPR > 16 ? 32 : LPR > 8 ? 16 : 8;   // lanes per row
+  static constexpr int RPW = 32 / GROUP;            // rows a warp holds at once
   static constexpr int SLOTS = kWarps * RPW;        // row slots of the block
   static constexpr int ROWS = GT >= 8 ? 2 : 4;      // rows per slot per step
 };
@@ -299,8 +312,10 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   const int g0 = (blockIdx.y % groups) * GT;
   const int gn = min(GT, G - g0);                    // live query heads of this block
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int slot = warp * S::RPW + lane / LPR;
-  const int c = (lane % LPR) * VEC;                  // this lane's slice of the head dim
+  const int slot = warp * S::RPW + lane / S::GROUP;
+  // lanes past a row's LPR (4 of 32 at hd = 112) load nothing and write nothing
+  const bool holds = lane % S::GROUP < LPR;
+  const int c = holds ? (lane % S::GROUP) * VEC : 0;   // this lane's slice of the head dim
   const int row_begin = lo + split * per;
   const int row_end = min(row_begin + per, hi);
 
@@ -311,7 +326,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     l[g] = 0.f;
 #pragma unroll
     for (int x = 0; x < VEC; ++x) acc[g][x] = 0.f, qr[g][x] = 0.f;
-    if (g < gn)
+    if (g < gn && holds)
       widen(*reinterpret_cast<const float4*>(q + b * q_b + (hk * G + g0 + g) * q_h + c), qr[g]);
   }
 
@@ -325,7 +340,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     for (int r = 0; r < ROWS; ++r) {
       const int j = base + r * SLOTS + slot;
       kr[r] = vr[r] = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (j < row_end) {
+      if (j < row_end && holds) {
         kr[r] = *reinterpret_cast<const float4*>(kb + j * k_l);
         vr[r] = *reinterpret_cast<const float4*>(vb + j * v_l);
       }
@@ -341,7 +356,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
         for (int x = 0; x < VEC; ++x) d = fmaf(qr[g][x], kf[x], d);
 #pragma unroll
-        for (int off = LPR / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
+        for (int off = S::GROUP / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
         s[r][g] = base + r * SLOTS + slot < row_end ? d * scale : -INFINITY;
       }
     }
@@ -372,12 +387,14 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   // Merge the row slots: one (m, l, acc) per query head.
 #pragma unroll
   for (int g = 0; g < GT; ++g) {
-    if (lane % LPR == 0) {
+    if (lane % S::GROUP == 0) {
       sm_m[slot][g] = m[g];
       sm_l[slot][g] = l[g];
     }
+    if (holds) {
 #pragma unroll
-    for (int x = 0; x < VEC; ++x) sm_acc[slot][g][c + x] = acc[g][x];
+      for (int x = 0; x < VEC; ++x) sm_acc[slot][g][c + x] = acc[g][x];
+    }
   }
   __syncthreads();
   for (int i = threadIdx.x; i < gn * HD; i += kThreads) {
@@ -474,6 +491,8 @@ extern "C" int flash_decode_launch(
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (head_dim == 64)
     return dispatch<64>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
+  if (head_dim == 112)
+    return dispatch<112>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
   if (head_dim == 128)
     return dispatch<128>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
   return (int)cudaErrorInvalidValue;

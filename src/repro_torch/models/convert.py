@@ -4,9 +4,11 @@ parameters and the optimizer's ``OptState``), so that both packages can
 start from one mid-run state.
 
 The reference stacks each segment's per-layer parameters on a leading axis
-(``blocks/attn/wq`` is (L, d, H, hd), ``moe/moe/w_gate`` (L, E, d, dff));
-the port keeps one module per layer (``blocks.<i>.attn.wq`` is (d, H, hd)). Conversion slices the layer axis and
-transposes nothing: both packages use the same layouts.
+(``blocks/attn/wq`` is (L, d, H, hd), ``moe/moe/w_gate`` (L, E, d, dff),
+``mamba0/mixer/in_z`` (6, d, d_inner)); a hybrid's ``shared_attn`` is one
+block and has no layer axis. The port keeps one module per layer
+(``blocks.<i>.attn.wq`` is (d, H, hd)). Conversion slices the layer axis
+and transposes nothing: both packages use the same layouts.
 """
 from __future__ import annotations
 
@@ -19,6 +21,13 @@ if TYPE_CHECKING:   # imported where used: the train package imports this module
     from repro_torch.train.optimizer import OptState
 
 STACKED = ("blocks", "dense0", "moe")   # segments whose parameters carry a layer axis
+
+
+def _stacked(seg: str) -> bool:
+    """Whether a top-level name is a segment with a layer axis: those of
+    ``STACKED`` and a hybrid's Mamba2 segments ``mamba0``, ``mamba1``, ...
+    (its ``shared_attn`` has none)."""
+    return seg in STACKED or (seg.startswith("mamba") and seg[5:].isdigit())
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
@@ -46,7 +55,7 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     state: Dict[str, torch.Tensor] = {}
     for path, arr in flatten_tree(tree).items():
         seg, *rest = path.split("/")
-        if seg in STACKED:
+        if _stacked(seg):
             arr = np.asarray(arr)
             for i in range(arr.shape[0]):
                 state[".".join([seg, str(i), *rest])] = _to_tensor(arr[i])
@@ -65,7 +74,7 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
         arr = t.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
         path = key.split(".")
-        if path[0] in STACKED:
+        if _stacked(path[0]):
             layers.setdefault((path[0], *path[2:]), {})[int(path[1])] = arr
             continue
         node = tree

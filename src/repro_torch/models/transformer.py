@@ -2,23 +2,30 @@
 full-sequence forward and its one-token decode step against a cache.
 
 Counterpart of the reference's ``Model`` for the dense decoders
-(``arch_type="dense"``), the RWKV6 family (``arch_type="ssm"``, ``ssm.kind=
-"rwkv6"``) and the MoE family (``arch_type="moe"``), with GQA or MLA
-attention. As in the reference's ``plan_segments``, a dense or RWKV6 model
-is the one segment ``blocks``, and a MoE model the segments ``dense0`` (its
-first dense layers, FFN width ``d_ff_expert·(top_k + shared)``) and ``moe``.
-Not ported yet: Mamba2 and the Zamba2 hybrid, the encoder-decoder
+(``arch_type="dense"``), the SSM families (``arch_type="ssm"``: RWKV6 or
+Mamba2), the MoE family (``arch_type="moe"``), with GQA or MLA attention,
+and the Zamba2 hybrid (``arch_type="hybrid"``). As in the reference's
+``plan_segments``, a dense or SSM model is the one segment ``blocks``, a MoE
+model the segments ``dense0`` (its first dense layers, FFN width
+``d_ff_expert·(top_k + shared)``) and ``moe``, and a hybrid the Mamba2
+segments ``mamba0``, ``mamba1``, ... of ``attn_every`` layers each, with one
+shared attention + MLP block (``shared_attn``, one set of weights) applied
+after every segment but the last. Not ported yet: the encoder-decoder
 (``audio``) and VLM families, and the MoE expert-parallel dispatch.
 
 The reference stacks each segment's per-layer parameters on a leading axis
 and runs the stack with ``jax.lax.scan``; here each segment is an
 ``nn.ModuleList`` of that name and a Python loop. Parameter names follow the
 reference tree (``blocks.<i>.attn.wq`` for ``blocks/attn/wq[i]``,
-``moe.<i>.moe.w_gate`` for ``moe/moe/w_gate[i]``), so ``models.convert``
-loads a JAX checkpoint with no transposes. The decode cache keeps the
-reference's tree, one tensor per leaf with the layer axis first
-(``cache["blocks"]["kv"]["k"]`` is (layers, B, L, Hkv, hd),
-``cache["moe"]["kv"]["c_kv"]`` (layers, B, L, r)), and is updated in place.
+``moe.<i>.moe.w_gate`` for ``moe/moe/w_gate[i]``, ``mamba0.<i>.mixer.in_z``
+for ``mamba0/mixer/in_z[i]``, ``shared_attn.attn.wq`` unstacked), so
+``models.convert`` loads a JAX checkpoint with no transposes. The decode
+cache keeps the reference's tree, one tensor per leaf with the layer axis
+first (``cache["blocks"]["kv"]["k"]`` is (layers, B, L, Hkv, hd),
+``cache["moe"]["kv"]["c_kv"]`` (layers, B, L, r), ``cache["mamba0"]["state"]
+["h"]`` (layers, B, H, state, 64)), and a hybrid's shared block one KV cache
+per application, ``cache["shared_attn"]["app<i>"]["kv"]``, with no layer
+axis; the cache is updated in place.
 
 Like the reference, ``gpt2-base`` uses RoPE, not GPT-2's learned position
 table: the port follows the JAX package, not GPT-2.
@@ -39,21 +46,23 @@ from repro_torch.models.attention import (GQAAttention, MLAAttention, gqa_decode
                                           mla_init_cache)
 from repro_torch.models.common import FFN, Norm, embed_tokens, unembed
 from repro_torch.models.moe import MoE, moe_ffn
-from repro_torch.models.ssm import (RWKV6TimeMix, rwkv6_decode, rwkv6_forward,
-                                    rwkv6_init_state)
+from repro_torch.models.ssm import (Mamba2Mixer, RWKV6TimeMix, mamba2_decode,
+                                    mamba2_forward, mamba2_init_state, rwkv6_decode,
+                                    rwkv6_forward, rwkv6_init_state)
 
 # init kinds of the reference's ParamSpecs (models/common.py) for the leaves
 # that are not drawn at 1/sqrt(fan_in)
 SMALL = ("mu_x", "mu_rkvwg", "tm_w1", "tm_w2", "decay_w1", "decay_w2", "u",
-         "router")                                                  # std 0.02
-ONES = ("gamma", "ln_out")
-ZEROS = ("beta", "bq", "bk", "bv")
+         "router", "conv_w")                                        # std 0.02
+ONES = ("gamma", "ln_out", "d_skip", "norm_g")
+ZEROS = ("beta", "bq", "bk", "bv", "dt_bias", "conv_b")
+DECAY = ("w0", "a_log")   # a linspace from -6 to -1 over each segment's stacked leaf
 EXPERT_STACKS = ("w_gate", "w_up", "w_down")   # (E, in, out) under a MoE layer
 
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str          # dense | moe | rwkv
+    kind: str          # dense | moe | rwkv | mamba
     count: int
     name: str
 
@@ -62,22 +71,26 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
     """The model's segments, as the reference's ``plan_segments`` names
     them; families not ported yet raise, naming the slice that brings them."""
     L, at = cfg.num_layers, cfg.arch_type
-    if cfg.frontend.kind == "none" and cfg.attention in ("gqa", "mla"):
-        if at == "dense":
-            return [Segment("dense", L, "blocks")]
-        if at == "moe" and cfg.moe is not None:
-            fd = cfg.moe.first_dense_layers
-            return ([Segment("dense", fd, "dense0")] if fd else []) + [
-                Segment("moe", L - fd, "moe")]
-    if at == "ssm" and cfg.ssm is not None and cfg.ssm.kind == "rwkv6":
-        return [Segment("rwkv", L, "blocks")]
-    later = {"ssm": "the Mamba2 slice", "hybrid": "the hybrid (Mamba2 + attention) slice",
-             "audio": "the encoder-decoder slice", "vlm": "the VLM slice"}
+    if cfg.frontend.kind == "none":
+        if cfg.attention in ("gqa", "mla"):
+            if at == "dense":
+                return [Segment("dense", L, "blocks")]
+            if at == "moe" and cfg.moe is not None:
+                fd = cfg.moe.first_dense_layers
+                return ([Segment("dense", fd, "dense0")] if fd else []) + [
+                    Segment("moe", L - fd, "moe")]
+        if at == "ssm" and cfg.ssm is not None:
+            return [Segment("rwkv" if cfg.ssm.kind == "rwkv6" else "mamba", L, "blocks")]
+        if at == "hybrid" and cfg.ssm is not None and cfg.hybrid is not None:
+            every = cfg.hybrid.attn_every
+            return [Segment("mamba", min(every, L - i), f"mamba{g}")
+                    for g, i in enumerate(range(0, L, every))]
+    later = {"audio": "the encoder-decoder slice", "vlm": "the VLM slice"}
     raise NotImplementedError(
         f"{cfg.name}: arch_type={cfg.arch_type!r}, attention={cfg.attention!r}, frontend="
         f"{cfg.frontend.kind!r} is not ported yet; it comes with "
-        f"{later.get(at, 'a later slice')}, after training and the cluster layer (the port "
-        "runs dense and MoE decoders with GQA or MLA attention, and the RWKV6 family)")
+        f"{later.get(at, 'a later slice')} (the port runs dense and MoE decoders with GQA or "
+        "MLA attention, the RWKV6 and Mamba2 families and the Zamba2 hybrid)")
 
 
 def dense_ffn_width(cfg: ModelConfig) -> int:
@@ -152,7 +165,42 @@ class RWKVBlock(nn.Module):
         return x + self.ffn(self.ln2(x))
 
 
-BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "rwkv": RWKVBlock}
+class MambaBlock(nn.Module):
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = Norm(cfg, cfg.d_model, device=device)
+        self.mixer = Mamba2Mixer(cfg, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        return x + mamba2_forward(self.cfg, self.mixer, self.ln(x))[0]
+
+
+class SharedAttention(nn.Module):
+    """Zamba2's shared block (the reference's ``shared_attn``): causal GQA
+    attention and an MLP of width ``d_ff``, each pre-normed and residual,
+    one set of weights applied after every Mamba2 segment but the last."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.ln = Norm(cfg, cfg.d_model, device=device)
+        self.attn = GQAAttention(cfg, device=device, dtype=dtype)
+        self.ln2 = Norm(cfg, cfg.d_model, device=device)
+        self.ffn = FFN(cfg, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor) -> torch.Tensor:
+        x = x + gqa_forward(self.cfg, self.attn, self.ln(x), positions)
+        return x + self.ffn(self.ln2(x))
+
+    def decode(self, x: torch.Tensor, cache: Dict, cache_len: int) -> torch.Tensor:
+        """One-token step against this application's KV cache, written in place."""
+        y, _ = gqa_decode(self.cfg, self.attn, self.ln(x), cache["kv"], cache_len)
+        x = x + y
+        return x + self.ffn(self.ln2(x))
+
+
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "rwkv": RWKVBlock, "mamba": MambaBlock}
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
@@ -161,6 +209,8 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
     ``min(length, window)`` slots; an MLA latent cache always ``length``."""
     if kind == "rwkv":
         return {"state": rwkv6_init_state(cfg, batch, device)}
+    if kind == "mamba":
+        return {"state": mamba2_init_state(cfg, batch, device)}
     dt = torch_dtype(cfg.dtype)
     if cfg.attention == "mla":
         return {"kv": mla_init_cache(cfg, batch, length, dt, device)}
@@ -171,6 +221,11 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 def block_decode(cfg: ModelConfig, kind: str, block: nn.Module, x: torch.Tensor,
                  cache: Dict, cache_len: int) -> torch.Tensor:
     """One-token step of one layer; writes the layer's ``cache`` in place."""
+    if kind == "mamba":
+        y, st = mamba2_decode(cfg, block.mixer, block.ln(x), cache["state"])
+        for name, t in st.items():
+            cache["state"][name].copy_(t)
+        return x + y
     h = block.ln1(x)
     if kind == "rwkv":
         y, st = rwkv6_decode(cfg, block.tmix, h, cache["state"])
@@ -193,12 +248,14 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Dict) -> Dict:
 
 
 class Model(nn.Module):
-    """Dense or MoE decoder (GQA or MLA attention) or RWKV6 model on
-    ``device`` (``cuda`` unless the caller passes ``device="cpu"``), its
-    weights drawn from ``seed``, or left uninitialised for a caller that
-    loads them when ``seed`` is None. Each of ``segments`` is an
-    ``nn.ModuleList`` attribute of its name (``blocks``, or ``dense0`` and
-    ``moe``). The weights are frozen (``requires_grad`` False, also after
+    """Dense or MoE decoder (GQA or MLA attention), RWKV6 or Mamba2 model, or
+    Zamba2 hybrid on ``device`` (``cuda`` unless the caller passes
+    ``device="cpu"``), its weights drawn from ``seed``, or left
+    uninitialised for a caller that loads them when ``seed`` is None. Each
+    of ``segments`` is an ``nn.ModuleList`` attribute of its name
+    (``blocks``, or ``dense0`` and ``moe``, or ``mamba0``, ``mamba1``, ...),
+    and a hybrid's shared block is the attribute ``shared_attn``. The
+    weights are frozen (``requires_grad`` False, also after
     ``load_state_dict``), as the reference's are under LPT: a forward keeps
     no autograd graph unless the prompt requires grad, and then the graph
     carries the prompt's gradient alone. Pretraining alone trains them,
@@ -227,6 +284,8 @@ class Model(nn.Module):
         for seg in self.segments:
             setattr(self, seg.name, nn.ModuleList(
                 BLOCKS[seg.kind](cfg, device=dev, dtype=pdt) for _ in range(seg.count)))
+        if cfg.hybrid is not None and cfg.hybrid.shared_attn:
+            self.shared_attn = SharedAttention(cfg, device=dev, dtype=pdt)
         self._train_weights = False
         self.requires_grad_(False)          # frozen, as the reference's: gradients reach the prompt only
         if seed is not None:
@@ -283,10 +342,12 @@ class Model(nn.Module):
     def init_weights(self, seed: int) -> None:
         """Random weights: norms and ``ln_out`` 1, LayerNorm betas and biases
         0, embeddings N(0, 0.02²), the reference's "small" leaves (RWKV6's
-        token-shift mixes, its LoRAs and ``u``; the MoE router, kept f32)
-        N(0, 0.02²), ``w0`` the reference's decay init (a linspace from -6 to
-        -1 over all layers' ``w0`` in layer order), and every other matrix
-        N(0, 1/fan_in) with fan_in the dims it contracts: d for
+        token-shift mixes, its LoRAs and ``u``; the MoE router, kept f32;
+        Mamba2's ``conv_w``) N(0, 0.02²), Mamba2's ``dt_bias`` and ``conv_b``
+        0 and ``d_skip`` and ``norm_g`` 1, RWKV6's ``w0`` and Mamba2's
+        ``a_log`` the reference's decay init (a linspace from -6 to -1 over
+        the leaf of all of a segment's layers, in layer order), and every
+        other matrix N(0, 1/fan_in) with fan_in the dims it contracts: d for
         wq/wk/wv/wr/wg, H·hd for wo, the first dim for the MLA projections,
         and for the (E, in, out) expert stacks ``in`` (d, or d_ff_expert for
         ``w_down``), not E. The reference takes the second-to-last dim, which
@@ -304,7 +365,7 @@ class Model(nn.Module):
                 p.fill_(1.0)
             elif leaf in ZEROS:
                 p.zero_()
-            elif leaf == "w0":
+            elif leaf in DECAY:
                 continue
             elif leaf in EXPERT_STACKS and p.dim() == 3:
                 for e in range(p.shape[0]):
@@ -316,10 +377,14 @@ class Model(nn.Module):
                 else:
                     std = 1.0 / math.sqrt(p.shape[0] * (p.shape[1] if leaf == "wo" else 1))
                 p.copy_(torch.randn(p.shape, generator=gen, device=p.device).mul_(std))
-        if self.segments[0].kind == "rwkv":
-            decay = torch.linspace(-6.0, -1.0, sum(b.tmix.w0.numel() for b in self.blocks))
-            for b, vals in zip(self.blocks, decay.split(self.blocks[0].tmix.w0.numel())):
-                b.tmix.w0.copy_(vals.reshape(b.tmix.w0.shape))
+        for seg in self.segments:
+            for leaf in DECAY:
+                ps = [p for b in getattr(self, seg.name) for name, p in b.named_parameters()
+                      if name.rsplit(".", 1)[-1] == leaf]
+                if ps:
+                    decay = torch.linspace(-6.0, -1.0, sum(p.numel() for p in ps))
+                    for p, vals in zip(ps, decay.split(ps[0].numel())):
+                        p.copy_(vals.reshape(p.shape))
         self._refresh_output_embedding()
 
     # -- forward ---------------------------------------------------------------
@@ -347,19 +412,26 @@ class Model(nn.Module):
         reference's ``backbone`` returns."""
         x, positions = self.embed_inputs(tokens, prompt)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
-        for seg in self.segments:
+        for si, seg in enumerate(self.segments):
             for block in getattr(self, seg.name):
                 if seg.kind == "moe":
                     x, a = block(x, positions)
                     aux = aux + a
                 else:
                     x = block(x, positions)
+            if self._shared_after(si):
+                x = self.shared_attn(x, positions)
         x = self.final_norm(x)
         return (x, {"aux_loss": aux}) if return_aux else x
 
     def forward(self, tokens, prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S_total, V) in f32."""
         return unembed(self.cfg, self.embedding, self.unembed, self.backbone(tokens, prompt))
+
+    def _shared_after(self, si: int) -> bool:
+        """Whether the hybrid's shared block runs after segment ``si``: after
+        every segment but the last."""
+        return hasattr(self, "shared_attn") and si < len(self.segments) - 1
 
     # -- decode -----------------------------------------------------------------
 
@@ -368,12 +440,20 @@ class Model(nn.Module):
         reference's tree, one entry per segment: ``{"blocks": {"kv": {"k",
         "v", "pos"}}}`` for GQA blocks, ``{"dense0": {"kv": {"c_kv",
         "k_rope", "pos"}}, "moe": {"kv": {...}}}`` for an MLA MoE model,
-        ``{"blocks": {"state": {"s", "x_prev"}}}`` for RWKV6, each leaf with
-        the layer axis first."""
+        ``{"blocks": {"state": {"s", "x_prev"}}}`` for RWKV6, ``{"mamba0":
+        {"state": {"h", "conv"}}, ...}`` for Mamba2 segments, each leaf with
+        the layer axis first; a hybrid also has ``{"shared_attn": {"app<i>":
+        {"kv": {"k", "v", "pos"}}}}``, one KV cache for each application of
+        the shared block (its weights are shared, its keys and values are
+        not)."""
         cache = {}
         for seg in self.segments:
             one = block_cache(self.cfg, seg.kind, batch, length, self.device)
             cache[seg.name] = _map(lambda t: t[None].expand(seg.count, *t.shape).clone(), one)
+        if hasattr(self, "shared_attn"):
+            cache["shared_attn"] = {
+                f"app{i}": block_cache(self.cfg, "dense", batch, length, self.device)
+                for i in range(len(self.segments) - 1)}
         return cache
 
     @torch.no_grad()
@@ -384,10 +464,12 @@ class Model(nn.Module):
         cache updated in place."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed_tokens(self.embedding, tokens, self.dtype)
-        for seg in self.segments:
+        for si, seg in enumerate(self.segments):
             layers = cache[seg.name]
             for i, block in enumerate(getattr(self, seg.name)):
                 x = block_decode(self.cfg, seg.kind, block, x, _map(lambda t: t[i], layers),
                                  int(cache_len))
+            if self._shared_after(si):
+                x = self.shared_attn.decode(x, cache["shared_attn"][f"app{si}"], int(cache_len))
         x = self.final_norm(x)
         return unembed(self.cfg, self.embedding, self.unembed, x), cache

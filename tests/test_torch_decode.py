@@ -56,6 +56,9 @@ DECODE_CASES = [  # B, H, Hkv, L, hd, kv_len, q_pos, window, splits
     (2, 14, 2, 48, 32, 45, 44, 12, 4),        # G = 7, sliding window
     (1, 4, 2, 64, 32, 5, None, 0, 8),         # 5 live rows in 8 splits: 3 partitions empty
     (2, 8, 2, 300, 16, 260, 259, 0, 3),       # several TPU KV tiles, ragged against them
+    (2, 4, 4, 40, 112, 33, None, 0, 4),       # hd 112 (zamba2-7b), G = 1, ragged kv_len
+    (1, 8, 2, 64, 112, 64, 40, 10, 4),        # hd 112, G = 4, q_pos < kv_len - 1, window
+    (1, 8, 1, 70, 112, 65, None, 0, 8),       # hd 112, G = 8, 65 live rows in 8 splits
 ]
 
 

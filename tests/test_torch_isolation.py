@@ -4,14 +4,17 @@
 - entry points raise without a GPU unless the caller passes ``device="cpu"``;
 - a kernel wrapper handed CUDA tensors launches its kernel or raises: it
   never quietly runs the plain version;
-- a family that is not ported yet raises, naming its later slice;
+- a family that is not ported yet raises, naming its later slice, and so
+  does the flash_attention backward at a head dim it has no kernel for;
 - ``chip_smoke.py`` imports nothing of ``repro`` and fails without a GPU.
 """
 import ast
+import dataclasses
 import os
 import shutil
 import subprocess
 import sys
+import types
 from pathlib import Path
 
 import pytest
@@ -254,23 +257,45 @@ def test_mla_decode_raises_on_cuda_misuse(as_if_cuda):
 
 
 def test_unported_families_raise():
-    """The MoE family is ported (with GQA or MLA); Mamba2, the hybrid and
-    the modality frontends still raise, naming their slice."""
-    import dataclasses
-
-    from repro_torch.config import FrontendConfig, HybridConfig, MoEConfig
+    """The MoE family, Mamba2 and the Zamba2 hybrid are ported and build
+    with the reference's segment names; the encoder-decoder (audio) and VLM
+    families still raise, naming their slice."""
+    from repro_torch.config import EncDecConfig, FrontendConfig, MoEConfig
 
     moe = smoke_config("qwen2-7b").with_overrides(
         arch_type="moe", moe=MoEConfig(num_experts=4, d_ff_expert=32))
     assert [s.name for s in Model(moe, device="cpu").segments] == ["dense0", "moe"]
     rwkv = smoke_config("rwkv6-7b")
     mamba = rwkv.with_overrides(ssm=dataclasses.replace(rwkv.ssm, kind="mamba2"))
-    hybrid = mamba.with_overrides(arch_type="hybrid", hybrid=HybridConfig())
+    assert [(s.name, s.kind) for s in Model(mamba, device="cpu").segments] == \
+        [("blocks", "mamba")]
+    hybrid = Model(smoke_config("zamba2-7b"), device="cpu")
+    assert [(s.name, s.kind) for s in hybrid.segments] == \
+        [("mamba0", "mamba"), ("mamba1", "mamba"), ("mamba2", "mamba")]
+    assert hybrid.shared_attn is not None
     vlm = smoke_config("qwen2-7b").with_overrides(
         arch_type="vlm", frontend=FrontendConfig(kind="vision", num_embeddings=8, embed_dim=48))
-    for cfg, slice_name in ((mamba, "Mamba2 slice"), (hybrid, "hybrid"), (vlm, "VLM slice")):
+    audio = smoke_config("qwen2-7b").with_overrides(
+        arch_type="audio", encdec=EncDecConfig(num_encoder_layers=2, encoder_seq_len=16),
+        frontend=FrontendConfig(kind="audio", num_embeddings=8, embed_dim=48))
+    for cfg, slice_name in ((vlm, "VLM slice"), (audio, "encoder-decoder slice")):
         with pytest.raises(NotImplementedError, match=slice_name):
             Model(cfg, device="cpu")
+
+
+def test_flash_attention_bwd_raises_at_head_dim_112(as_if_cuda):
+    """The forward takes hd 112 (zamba2-7b); the backward has no kernel for
+    it yet and raises before any launch, naming the slice that brings it,
+    also when a gradient reaches it through FlashAttention."""
+    q, kv = torch.zeros(1, 4, 8, 112), torch.zeros(1, 2, 8, 112)
+    lse = torch.zeros(1, 4, 8)
+    before = fa_mod.flash_attention_bwd.launches
+    _raises_without_fallback(lambda: fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse),
+                             NotImplementedError, "zamba2-7b tuning slice")
+    _raises_without_fallback(lambda: fa_mod.FlashAttention.backward(
+        types.SimpleNamespace(saved_tensors=(q, kv, kv, q, lse), kw={}), q),
+        NotImplementedError, "head_dim=112")
+    assert fa_mod.flash_attention_bwd.launches == before
 
 
 def test_device_kind_rejects_mixed_devices():

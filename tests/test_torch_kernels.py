@@ -111,6 +111,9 @@ FLASH_CASES = [  # B, H, Hkv, S, L, hd, causal, window, q_offset, kv_len
     (1, 2, 1, 8, 64, 16, False, 0, 0, 33),         # dynamic kv_len, G=2
     (2, 2, 2, 33, 33, 64, True, 0, 0, None),       # ragged S = L
     (1, 4, 2, 20, 50, 32, True, 12, 30, 45),       # all masks at once
+    (1, 2, 2, 17, 17, 112, True, 0, 0, None),      # hd 112 (zamba2-7b), MHA, ragged S = L
+    (1, 4, 1, 9, 40, 112, True, 6, 31, 36),        # hd 112, G = 4, all masks at once
+    (1, 2, 2, 12, 20, 112, False, 0, 0, 15),       # hd 112, not causal, short kv_len
 ]
 
 
@@ -189,7 +192,10 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             (1, 12, 4, 513, 513, 64, {}),
             (1, 28, 4, 513, 513, 128, {}),
             (2, 4, 2, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
-            (2, 4, 2, 65, 130, 64, {"causal": False, "kv_len": 100})]:
+            (2, 4, 2, 65, 130, 64, {"causal": False, "kv_len": 100}),
+            (2, 4, 4, 65, 65, 112, {}),                               # hd 112, MHA
+            (2, 8, 2, 65, 200, 112, {"q_offset": 135, "window": 70}),
+            (2, 4, 4, 1, 513, 112, {"q_offset": 512})]:
         q = torch.randn(B, H, S, hd, generator=gen, device=cuda_device).to(dtype)
         k = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
         v = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
@@ -209,7 +215,10 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             (2, 4, 4, 64, 1000, {"kv_len": 777}),                     # G = 1
             (2, 28, 4, 128, 32768, {"kv_len": 20001}),
             (2, 28, 4, 128, 4096, {"kv_len": 3000, "window": 1000}),  # window edge inside a tile
-            (2, 28, 4, 128, 4096, {"kv_len": 5, "q_pos": 3, "splits": 8})]:   # empty partitions
+            (2, 28, 4, 128, 4096, {"kv_len": 5, "q_pos": 3, "splits": 8}),    # empty partitions
+            (2, 32, 32, 112, 1000, {"kv_len": 777}),                  # hd 112, G = 1
+            (2, 16, 2, 112, 512, {"kv_len": 65, "q_pos": 40}),        # hd 112, G = 8
+            (2, 16, 4, 112, 4096, {"kv_len": 3000, "window": 1000})]:  # hd 112, G = 4
         q = torch.randn(B, H, hd, generator=gen, device=cuda_device).to(dtype)
         # k, v: the model's (B, L, Hkv, hd) cache, read through transposed views
         k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=cuda_device)
