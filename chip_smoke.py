@@ -6,7 +6,8 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc for sm_90a (one
-   nvcc per source, in parallel), print each kernel's registers and spills
+   nvcc per source, in parallel, beside flash_attention's one-term P·V
+   variant that phase 2 compares), print each kernel's registers and spills
    as ptxas reports them and mla_decode's dynamic shared memory, and print
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
@@ -29,7 +30,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    G = 4, non-causal; flash_decode at its serve shape (B = 8, G = 1, the
    whole cache and ragged), kv_len 1, 63, 64 and 65, G = 4 and 8, a
    window, q_pos < kv_len - 1 and empty partitions; score_ce at D = 3584,
-   V = 32000, T = 272 and 7952.
+   V = 32000, T = 272 and 7952. The last three dense configs' shapes:
+   score_ce at (D, V) = (6144, 92544), (5120, 100352) and (12288, 256000),
+   T = 272 and 7952; flash_attention at GQA groups 4, 6 and 12 (hd 128),
+   and at B = 1, H = 28, Hkv = 4, S = L = 32768 held in slices of 1024
+   queries. bf16 flash_attention is held to flash_decode's bound (rtol 1e-2,
+   atol 1e-3 x max |plain|); each case also prints the gap of the kernel's
+   one-term P·V variant (P rounded to bf16, the kernel before P was split
+   into P_hi + P_lo) and of the plain version with P rounded to bf16, and
+   the split's cost is timed at S = 513 hd 64, S = 4112 hd 128 and S = 513
+   hd 112 (2s).
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
@@ -169,6 +179,27 @@ Phases, in order; any failure ends the run with a non-zero exit:
    cut (6 + 1 Mamba2 layers, one shared application), card against CPU:
    Eqn-1 scores of 4 candidates, 4 decode steps.
 
+12. The last three dense configs at full width, bf16, weights from --seed
+   (after phase 11): internlm2-20b (48 layers) and phi3-medium-14b (40) at
+   full depth, command-r-plus-104b (LayerNorm, parallel block, tied) cut
+   from 64 to 16 layers. Each: a bank of 48 candidates in 12 clusters,
+   lookups at 33 and 513 positions with flash_attention launched once a
+   layer per evaluation and no plain version run, one evaluation profiled,
+   peak memory, score_ce timed at its (D, V), and a 2-layer f32 cut, card
+   against CPU, on Eqn-1 scores.
+13. qwen2-7b at full width and depth, bf16: (a) prefill_32k through
+   make_prefill_step with the batch cut from 32 to 4 (32768 tokens and a
+   16-position prompt a row): flash_attention once a layer, the
+   per-example losses, example 0 held against the same step with its
+   attention through the f32 kernel, the step profiled, its peak memory,
+   and flash_attention at B = 1, S = L = 32768 held in slices and timed;
+   (b) long_500k through model_for_shape (an 8192-token window): the ring
+   seeded with K/V at the positions it holds at cache_len 524280, 8 serve
+   steps to position 524287 on the masked path (no attention kernel), each
+   layer's masked attention held against flash_attention (window 8192,
+   q_offset, 64 stale rows before the window) on the same K/V in position
+   order, one step profiled.
+
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
 (the others under "shapes") and its launches in all and by path and shape;
@@ -210,6 +241,12 @@ TOL = {torch.bfloat16: 3e-2, torch.float32: 2e-5}   # tolerances of tests/test_k
 # would pass a lost split; the bound is scaled to the output instead.
 DECODE_BF16_RTOL = 1e-2
 DECODE_BF16_ATOL = 1e-3        # times max |plain output|
+# flash_attention in bf16 is held to the same bound. The kernel keeps P in f32
+# to 2^-16 (P_hi + P_lo, csrc/flash_attention.cu), so it and the plain version
+# differ by f32 rounding before each rounds its output to bf16 once: at most
+# one unit in the last place, 2^-7 relative, below DECODE_BF16_RTOL. One bf16
+# P (2^-8 of each probability) left gaps of 1.6e-2 on outputs near 1 at 513
+# positions.
 # Eqn-1 scores, card against the CPU f32 path with the same weights (phase 4).
 # bf16 rounds every activation, so it is held loosely; the kernels keep logits
 # and softmax in f32, so the gap is set by the bf16 residual stream.
@@ -354,11 +391,16 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float,
 
 # -- phase 1 --------------------------------------------------------------------
 
-def phase_build() -> str:
+def phase_build():
+    """Returns the card's name and power limit, and the one-term P·V variant
+    of flash_attention's library (one_term_p_source), built beside the
+    kernels."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
+    one_term = start_one_term_build()
     libs = _build.build()
+    one_term = finish_one_term_build(*one_term)
     print(f"[1] built {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, so in sorted(libs.items()):
         log = so.with_suffix(".log").read_text() if so.with_suffix(".log").exists() else ""
@@ -373,7 +415,148 @@ def phase_build() -> str:
           f"f32 {mla.mla_decode_smem_bytes(0)} B a block")
     card = gpu_line()
     print(card)
-    return card
+    return card, one_term
+
+
+# -- flash_attention's P·V with one bf16 term, for phase 2's before and after ------
+
+# What csrc/flash_attention.cu ran before P was split into P_hi + P_lo: one
+# bf16 P as the A operand of each P·V product. one_term_p_source makes it from
+# the committed source (each substitution must apply exactly once, so an edit
+# of the source that breaks one fails the build loudly); phase 2 prints its
+# gaps beside the kernel's and times the two. It is never on a main path.
+ONE_TERM_SUBS = [
+    ("""      uint32_t ph[4], pl[4];
+      split_bf16(sa[2 * kk][0], sa[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sa[2 * kk][2], sa[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3], ph[3], pl[3]);
+""", """      const uint32_t ph[4] = {pack_bf16(sa[2 * kk][0], sa[2 * kk][1]),
+                              pack_bf16(sa[2 * kk][2], sa[2 * kk][3]),
+                              pack_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1]),
+                              pack_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3])};
+"""),
+    ("""        mma_bf16(oacc[n], pl, bf[0], bf[1]);
+        mma_bf16(oacc[n + 1], pl, bf[2], bf[3]);
+""", ""),
+]
+
+
+def one_term_p_source(src: str) -> str:
+    for old, new in ONE_TERM_SUBS:
+        if src.count(old) != 1:
+            raise AssertionError(f"the one-term P·V variant no longer applies to "
+                                 f"flash_attention.cu: {old.strip()[:60]!r}")
+        src = src.replace(old, new)
+    return src
+
+
+def start_one_term_build():
+    """Starts nvcc on the one-term variant, with the kernels' flags, into
+    build/flash_attention_one_term/."""
+    from repro_torch.kernels import _build
+
+    out = ROOT / "build" / "flash_attention_one_term"
+    out.mkdir(parents=True, exist_ok=True)
+    cu, so = out / "flash_attention_one_term.cu", out / "flash_attention_one_term.so"
+    cu.write_text(one_term_p_source((_build.CSRC / "flash_attention.cu").read_text()))
+    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
+    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                            text=True), so
+
+
+def finish_one_term_build(proc, so):
+    import ctypes
+
+    out, _ = proc.communicate()
+    if proc.returncode:
+        raise RuntimeError(f"nvcc of the one-term flash_attention variant failed:\n{out}")
+    return ctypes.CDLL(str(so))
+
+
+@contextlib.contextmanager
+def fa_library(lib):
+    """flash_attention's wrapper launches from ``lib`` inside the block."""
+    from repro_torch.kernels import _build
+
+    _build.load("flash_attention")
+    saved, _build._LIBS["flash_attention"] = _build._LIBS["flash_attention"], lib
+    try:
+        yield
+    finally:
+        _build._LIBS["flash_attention"] = saved
+
+
+def flash_attention_p_bf16(q, k, v, **kw):
+    """flash_attention_plain with P rounded to bf16 before P·V, as one bf16
+    A operand rounds it: exp(s - row max) rounded, P·V in f32, divided by the
+    f32 row sum."""
+    from repro_torch.kernels.flash_attention import _scores
+
+    B, H, S, hd = q.shape
+    kw = {"causal": True, "window": 0, "q_offset": 0, "kv_len": None, **kw}
+    scores, live = _scores(q, k, **kw)
+    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * live
+    pv = torch.einsum("bhgsl,bhld->bhgsd", p.to(torch.bfloat16).float(), v.float())
+    return (pv / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(B, H, S, hd).to(q.dtype)
+
+
+def gap(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
+    """(max abs error, the largest share of its bound atol + rtol·|ref| that
+    an element's error takes: at most 1 where the bound holds)."""
+    err = (out.float() - ref.float()).abs()
+    return err.max().item(), (err / (atol + rtol * ref.float().abs())).max().item()
+
+
+def fa_bf16_bound(ref: torch.Tensor):
+    """flash_attention's bf16 bound: DECODE_BF16_RTOL and DECODE_BF16_ATOL
+    times the plain output's largest element."""
+    return DECODE_BF16_RTOL, DECODE_BF16_ATOL * ref.float().abs().max().item()
+
+
+SLICE_ROWS = 1024
+
+
+def sliced_attention_check(label: str, q, k, v, one_term=None, out=None) -> dict:
+    """flash_attention, causal at S = L, against its plain version over
+    slices of SLICE_ROWS queries (the plain version's (S, L) scores of 32768
+    positions do not fit), each slice at its q_offset against the keys up to
+    its last row; bf16 at each slice's fa_bf16_bound, f32 at TOL. ``out`` is
+    the kernel's output on q, k and v where a main path already made it.
+    Returns the largest error, the time of the plain slices together, and
+    with ``one_term`` that variant's largest error (printed, not held)."""
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+
+    if out is None:
+        out = flash_attention(q, k, v, causal=True)
+    before = None
+    if one_term is not None:
+        with fa_library(one_term):
+            before = flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    S, worst, plain_s, worst_before = q.shape[2], 0.0, 0.0, 0.0
+    for s0 in range(0, S, SLICE_ROWS):
+        s1 = min(S, s0 + SLICE_ROWS)
+        t = time.perf_counter()
+        ref = flash_attention_plain(q[:, :, s0:s1], k[:, :, :s1], v[:, :, :s1], causal=True,
+                                    q_offset=s0)
+        torch.cuda.synchronize()
+        plain_s += time.perf_counter() - t
+        rtol, atol = (fa_bf16_bound(ref) if q.dtype == torch.bfloat16
+                      else (TOL[q.dtype], TOL[q.dtype]))
+        worst = max(worst, check_close(f"{label} rows {s0}..{s1 - 1}", out[:, :, s0:s1], ref,
+                                       rtol, atol))
+        if before is not None:
+            worst_before = max(worst_before, gap(before[:, :, s0:s1], ref, rtol, atol)[1])
+        del ref
+    extra = ("" if before is None else
+             f"; before the split (one bf16 P) {worst_before:.2f} of the bound at its worst")
+    print(f"{label}: {-(-S // SLICE_ROWS)} slices of {SLICE_ROWS} queries, max abs err "
+          f"{worst:.3e}{extra}; plain slices {plain_s * 1e3:.1f} ms of host wall")
+    res = {"err": worst, "plain_ms": plain_s * 1e3}
+    if before is not None:
+        res["one_term"] = worst_before
+    return res
 
 
 # -- phase 2 --------------------------------------------------------------------
@@ -384,6 +567,46 @@ SCORE_CE_CASES = [  # T, D, V of phase 2's score_ce checks
     (272, 4096, 65536), (16 * 497, 4096, 65536),    # rwkv6-7b
     (272, 5120, 102400), (16 * 497, 5120, 102400),  # deepseek-v2
     (272, 3584, 32000), (16 * 497, 3584, 32000),    # zamba2-7b
+    (272, 6144, 92544), (16 * 497, 6144, 92544),    # internlm2-20b
+    (272, 5120, 100352), (16 * 497, 5120, 100352),  # phi3-medium-14b
+    (272, 12288, 256000), (16 * 497, 12288, 256000),  # command-r-plus-104b
+]
+# flash_attention's checks: B, H, Hkv, S, L, hd, kwargs (causal unless they
+# say otherwise). Then GQA groups 4, 6 and 12 at hd 128 (phi3-medium-14b,
+# internlm2-20b, command-r-plus-104b); S = L = 32768 is held apart, in
+# slices (sliced_attention_check).
+FLASH_CASES = [
+    (16, 12, 12, 33, 33, 64, {}),
+    (16, 12, 12, 513, 513, 64, {}),
+    (2, 28, 4, 513, 513, 128, {}),
+    (2, 28, 4, 513, 513, 128, {"window": 128, "kv_len": 400}),
+    (2, 28, 4, 64, 513, 128, {"q_offset": 449}),
+    (4, 12, 12, 1, 1, 64, {}),                               # S = 1
+    (4, 12, 12, 65, 65, 64, {}),                             # one row past a tile
+    (2, 28, 4, 1, 513, 128, {"q_offset": 512}),              # one row at the end
+    (2, 12, 4, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
+    (2, 28, 4, 513, 513, 128, {"window": 100}),
+    (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
+    # hd 112: zamba2-7b's shared attention (MHA) at its lookup shapes,
+    # and the 64-row tiles' edges, a window, q_offset and G = 4
+    (16, 32, 32, 33, 33, 112, {}),
+    (16, 32, 32, 513, 513, 112, {}),
+    (4, 32, 32, 1, 1, 112, {}),                              # S = 1
+    (4, 32, 32, 65, 65, 112, {}),                            # one row past a tile
+    (2, 32, 8, 1, 513, 112, {"q_offset": 512}),              # G = 4, one row at the end
+    (2, 32, 8, 64, 513, 112, {"q_offset": 449}),
+    (2, 32, 32, 65, 200, 112, {"q_offset": 135, "window": 70}),  # window edge in a tile
+    (2, 32, 8, 513, 513, 112, {"window": 100}),
+    (2, 32, 32, 65, 130, 112, {"causal": False, "kv_len": 100}),
+    (2, 32, 32, 513, 513, 112, {"causal": False}),
+    (2, 40, 10, 513, 513, 128, {}),                          # G = 4 (phi3-medium-14b)
+    (2, 48, 8, 513, 513, 128, {}),                           # G = 6 (internlm2-20b)
+    (1, 96, 8, 513, 513, 128, {}),                           # G = 12 (command-r-plus)
+    # the three at their lookup shapes (phase 12)
+    (16, 40, 10, 33, 33, 128, {}), (16, 40, 10, 513, 513, 128, {}),
+    (16, 48, 8, 33, 33, 128, {}), (16, 48, 8, 513, 513, 128, {}),
+    (16, 96, 8, 33, 33, 128, {}), (16, 96, 8, 513, 513, 128, {}),
+    (2, 96, 8, 65, 200, 128, {"q_offset": 135, "window": 70}),  # G = 12, window edge
 ]
 # rwkv6_wkv's checks: B, H, T, decay, start state. The bf16 kernel's
 # sub-chunk is C = 16 tokens: T = 1, C - 1, C, C + 1 and 2C + 1. Decay
@@ -398,7 +621,14 @@ WKV_CASES = [
     (4, 8, 513, "steep", True),
 ]
 
-def phase_kernels(dev: torch.device, seed: int) -> dict:
+# the split's cost: B, H, S = L, hd (causal, MHA): gpt2-base's lookup at 513
+# positions, vicuna-7b's train_4k, zamba2-7b's lookup at 513
+SPLIT_COST_SHAPES = [(16, 12, 513, 64), (1, 32, 4112, 128), (16, 32, 513, 112)]
+
+
+def phase_kernels(dev: torch.device, seed: int, one_term) -> tuple:
+    """Returns each kernel's largest error, and flash_attention's gaps
+    before and after the split of P with the split's cost."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_plain
@@ -406,6 +636,7 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"score_ce": 0.0, "flash_attention": 0.0, "flash_decode": 0.0, "rwkv6_wkv": 0.0}
+    split = {"gaps": [], "cost": []}
     for dtype in (torch.bfloat16, torch.float32):
         for T, D, V in SCORE_CE_CASES:
             h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
@@ -420,32 +651,7 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             worst["score_ce"] = max(worst["score_ce"], err)
             print(f"[2] score_ce T={T} D={D} V={V} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
             del h, e
-        cases = [  # B, H, Hkv, S, L, hd, kwargs (causal unless they say otherwise)
-            (16, 12, 12, 33, 33, 64, {}),
-            (16, 12, 12, 513, 513, 64, {}),
-            (2, 28, 4, 513, 513, 128, {}),
-            (2, 28, 4, 513, 513, 128, {"window": 128, "kv_len": 400}),
-            (2, 28, 4, 64, 513, 128, {"q_offset": 449}),
-            (4, 12, 12, 1, 1, 64, {}),                               # S = 1
-            (4, 12, 12, 65, 65, 64, {}),                             # one row past a tile
-            (2, 28, 4, 1, 513, 128, {"q_offset": 512}),              # one row at the end
-            (2, 12, 4, 65, 200, 64, {"q_offset": 135, "window": 70}),  # window edge inside a tile
-            (2, 28, 4, 513, 513, 128, {"window": 100}),
-            (2, 12, 12, 65, 130, 64, {"causal": False, "kv_len": 100}),
-            # hd 112: zamba2-7b's shared attention (MHA) at its lookup shapes,
-            # and the 64-row tiles' edges, a window, q_offset and G = 4
-            (16, 32, 32, 33, 33, 112, {}),
-            (16, 32, 32, 513, 513, 112, {}),
-            (4, 32, 32, 1, 1, 112, {}),                              # S = 1
-            (4, 32, 32, 65, 65, 112, {}),                            # one row past a tile
-            (2, 32, 8, 1, 513, 112, {"q_offset": 512}),              # G = 4, one row at the end
-            (2, 32, 8, 64, 513, 112, {"q_offset": 449}),
-            (2, 32, 32, 65, 200, 112, {"q_offset": 135, "window": 70}),  # window edge in a tile
-            (2, 32, 8, 513, 513, 112, {"window": 100}),
-            (2, 32, 32, 65, 130, 112, {"causal": False, "kv_len": 100}),
-            (2, 32, 32, 513, 513, 112, {"causal": False}),
-        ]
-        for B, H, Hkv, S, L, hd, kw in cases:
+        for B, H, Hkv, S, L, hd, kw in FLASH_CASES:
             kw = {"causal": True, **kw}
             q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype)
             k = torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(dtype)
@@ -453,11 +659,34 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
             out = flash_attention(q, k, v, **kw)
             torch.cuda.synchronize()
             ref = flash_attention_plain(q, k, v, **kw)
-            err = check_close(f"flash_attention {(B, H, Hkv, S, L, hd)} {kw} {dtype}",
-                              out, ref, TOL[dtype])
+            name = f"flash_attention B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} {kw} {dtype}"
+            rtol, atol, extra = TOL[dtype], TOL[dtype], ""
+            if dtype == torch.bfloat16:
+                rtol, atol = fa_bf16_bound(ref)
+                with fa_library(one_term):
+                    before = gap(flash_attention(q, k, v, **kw), ref, rtol, atol)
+                rounded = gap(flash_attention_p_bf16(q, k, v, **kw), ref, rtol, atol)
+                after = gap(out, ref, rtol, atol)
+                split["gaps"].append({"case": name, "one_term": before, "p_bf16": rounded,
+                                      "split": after})
+                extra = (f", {after[1]:.2f} of the bound; before the split (one bf16 P) "
+                         f"{before[0]:.3e}, {before[1]:.2f} of the bound; plain with P rounded "
+                         f"to bf16 {rounded[0]:.3e}, {rounded[1]:.2f} of the bound")
+            err = check_close(name, out, ref, rtol, atol)
             worst["flash_attention"] = max(worst["flash_attention"], err)
-            print(f"[2] flash_attention B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} "
-                  f"{kw} {dtype}: max abs err {err:.3e} (tol {TOL[dtype]})")
+            print(f"[2] {name}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e}){extra}")
+        # qwen2-7b's heads at prefill_32k's length, held in slices
+        q = torch.randn(1, 28, 32768, 128, generator=gen, device=dev).to(dtype)
+        k, v = (torch.randn(1, 4, 32768, 128, generator=gen, device=dev).to(dtype)
+                for _ in range(2))
+        res = sliced_attention_check(f"[2] flash_attention B=1 H=28 Hkv=4 S=L=32768 hd=128 "
+                                     f"causal {dtype}", q, k, v,
+                                     one_term if dtype == torch.bfloat16 else None)
+        worst["flash_attention"] = max(worst["flash_attention"], res["err"])
+        if "one_term" in res:
+            split["gaps"].append({"case": "B=1 H=28 Hkv=4 S=L=32768 hd=128 causal, sliced",
+                                  "one_term_share": res["one_term"], "split": res["err"]})
+        del q, k, v
         decode_cases = [  # B, H, Hkv, L, hd, kwargs
             (16, 28, 4, 32768, 128, {"kv_len": 32768}),              # qwen2-7b serve shape
             (16, 28, 4, 32768, 128, {"kv_len": 20001}),              # ragged
@@ -543,7 +772,25 @@ def phase_kernels(dev: torch.device, seed: int) -> dict:
         print(f"[2] rwkv6_wkv B*H={B * H} T={T} hd={hd}, rows {r.stride(2)} elements apart, "
               f"{dtype} inputs: max abs err (y and state) {err:.3e} (rtol {WKV_TOL[dtype]}, "
               f"atol {WKV_TOL[dtype]:.2e})")
-    return worst
+
+    # what the split costs: the kernel and the one-term variant on the same
+    # inputs, timed in the order kernel, variant, kernel, variant
+    for B, H, S, hd in SPLIT_COST_SHAPES:
+        q, k, v = (torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+                   for _ in range(3))
+        times = {"split": [], "one_term": []}
+        for name in ("split", "one_term", "split", "one_term"):
+            with fa_library(one_term) if name == "one_term" else contextlib.nullcontext():
+                times[name].append(time_ms(lambda: flash_attention(q, k, v, causal=True)))
+        row = {"shape": f"B={B} H={H} S=L={S} hd={hd} causal bf16",
+               **{name: min(t) for name, t in times.items()}}
+        split["cost"].append(row)
+        print(f"[2s] flash_attention {row['shape']}: P split (the kernel) "
+              f"{times['split'][0]:.4f} / {times['split'][1]:.4f} ms, one bf16 P "
+              f"{times['one_term'][0]:.4f} / {times['one_term'][1]:.4f} ms: the split costs "
+              f"{row['split'] / row['one_term'] - 1:+.1%}")
+        del q, k, v
+    return worst, split
 
 
 def eval_shape(score_fn, positions: int) -> str:
@@ -2225,6 +2472,64 @@ def attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, de
     return row
 
 
+def bank_and_lookups(label: str, model, requests, seed: int) -> dict:
+    """Phases 11a and 12: a bank of 24 tasks x 2 variants = 48 candidates in
+    12 clusters on ``model`` (bf16, on the card), then one lookup for each
+    task of ``requests``, with flash_attention and score_ce counted by
+    request shape; then one more evaluation of the first request, whose
+    flash_attention launches are ``per_eval``. Fails if either kernel was
+    never launched or a plain version ran."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.core import build_bank, make_score_fn
+    from repro_torch.data import make_tasks
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.score_ce import score_ce
+
+    tune_cfg = TuneConfig(prompt_len=16)
+    rng = np.random.default_rng(seed)
+    d = model.cfg.d_model
+    seed_prompts = {t.task_id: rng.normal(0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d))
+                    .astype(np.float32) for t in make_tasks(vocab=32, partitions=2)}
+    kernels = {"flash_attention": flash_attention, "score_ce": score_ce}
+    by_shape = {name: {} for name in kernels}
+    flash_attention.launches = score_ce.launches = 0
+    calls: dict = {}
+    t0 = time.perf_counter()
+    with plain_calls(calls):
+        with counted(kernels, by_shape, "bank build"):
+            bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
+        torch.cuda.synchronize()
+        print(f"{label} bank: {len(bank.entries)} candidates (24 tasks x 2 variants), "
+              f"{len(bank.medoid_ids)} clusters, features + clustering "
+              f"{time.perf_counter() - t0:.3f} s")
+        if len(bank.entries) != 48 or len(bank.medoid_ids) != 12:
+            raise AssertionError(f"{label} the bank does not hold 48 candidates in 12 clusters")
+        results = []
+        for task in requests:
+            score_fn = make_score_fn(model, task, tune_cfg)
+            positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
+            with counted(kernels, by_shape, eval_shape(score_fn, positions)):
+                res = bank.lookup(score_fn)
+            if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
+                raise AssertionError(f"{label} lookup for {task.task_id} gave {res}")
+            print(f"{label} request {task.task_id} ({positions} positions): "
+                  f"origin={res.entry.origin} score={res.score:.6f} "
+                  f"evaluations={res.evaluations} latency={res.latency_s:.3f} s")
+            results.append((task, res, score_fn))
+        task, res, score_fn = results[0]
+        before = flash_attention.launches
+        score_fn(res.entry)
+        per_eval = flash_attention.launches - before
+    launches = {"flash_attention": flash_attention.launches, "score_ce": score_ce.launches}
+    print(f"{label} kernel launches on the lookup path: {launches}; by shape {by_shape}; "
+          f"flash_attention launches per evaluation {per_eval}; plain-version calls {calls}")
+    if any(n <= 0 for n in launches.values()) or any(calls.values()):
+        raise AssertionError(f"{label} a kernel was never launched on the lookup path, or a "
+                             f"plain version ran: {launches} {calls}")
+    return {"bank": bank, "results": results, "by_shape": by_shape, "launches": launches,
+            "per_eval": per_eval, "tune_cfg": tune_cfg, "seed_prompts": seed_prompts}
+
+
 def hybrid_depth_witness(label: str, model, tokens: torch.Tensor) -> dict:
     """Decode against the forward through a hybrid's depth, block by block
     (each Mamba2 layer, then each shared-attention application).
@@ -2291,11 +2596,10 @@ def phase_hybrid(dev: torch.device, seed: int) -> dict:
     depth, bf16, weights from --seed."""
     from repro_torch.config import INPUT_SHAPES, TuneConfig
     from repro_torch.configs import get_config
-    from repro_torch.core import build_bank, make_score_fn
+    from repro_torch.core import make_score_fn
     from repro_torch.data import LoaderConfig, TaskLoader, make_tasks
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
     from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
-    from repro_torch.kernels.score_ce import score_ce
     from repro_torch.launch import make_serve_step
     from repro_torch.models import Model, prompt_from_arrays
     from repro_torch.models.ssm import mamba2_dims
@@ -2319,51 +2623,14 @@ def phase_hybrid(dev: torch.device, seed: int) -> dict:
           f"allocated on the card; drawn from seed {seed} in {time.perf_counter() - t0:.1f} s")
 
     # (a) the Prompt Bank lookup
-    tune_cfg = TuneConfig(prompt_len=16)
     tasks = make_tasks(vocab=32, partitions=2)          # 12 families x 2 = 24 tasks
-    rng = np.random.default_rng(seed)
-    d = cfg.d_model
-    seed_prompts = {t.task_id: rng.normal(0, 0.5 / np.sqrt(d), (tune_cfg.prompt_len, d))
-                    .astype(np.float32) for t in tasks}
     requests = [tasks[3], tasks[14],
                 make_tasks(input_len=248, target_len=248)[9]]   # 33, 33, 513 positions
-    kernels = {"flash_attention": flash_attention, "score_ce": score_ce}
-    by_shape = {name: {} for name in kernels}
-    flash_attention.launches = score_ce.launches = 0
-    calls: dict = {}
-    t0 = time.perf_counter()
-    with plain_calls(calls):
-        with counted(kernels, by_shape, "bank build"):
-            bank = build_bank(model, seed_prompts, variants_per_prompt=2, seed=seed)
-        torch.cuda.synchronize()
-        print(f"[11a] bank: {len(bank.entries)} candidates (24 tasks x 2 variants), "
-              f"{len(bank.medoid_ids)} clusters, features + clustering "
-              f"{time.perf_counter() - t0:.3f} s")
-        if len(bank.entries) != 48 or len(bank.medoid_ids) != 12:
-            raise AssertionError("bank does not hold 48 candidates in 12 clusters")
-        results = []
-        for task in requests:
-            score_fn = make_score_fn(model, task, tune_cfg)
-            positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
-            with counted(kernels, by_shape, eval_shape(score_fn, positions)):
-                res = bank.lookup(score_fn)
-            if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
-                raise AssertionError(f"lookup for {task.task_id} gave {res}")
-            print(f"[11a] request {task.task_id} ({positions} positions): "
-                  f"origin={res.entry.origin} score={res.score:.6f} "
-                  f"evaluations={res.evaluations} latency={res.latency_s:.3f} s")
-            results.append((task, res, score_fn))
-        task, res, score_fn = results[0]
-        before = flash_attention.launches
-        score_fn(res.entry)
-        per_eval = flash_attention.launches - before
-    launches = {"flash_attention": flash_attention.launches, "score_ce": score_ce.launches}
-    print(f"[11a] kernel launches on the lookup path: {launches}; by shape {by_shape}; "
-          f"flash_attention (hd {hd}) launches per evaluation {per_eval}; plain-version "
-          f"calls {calls}")
-    if any(n <= 0 for n in launches.values()) or any(calls.values()):
-        raise AssertionError("[11a] a kernel was never launched on the zamba2-7b lookup path, "
-                             f"or a plain version ran: {launches} {calls}")
+    look = bank_and_lookups("[11a]", model, requests, seed)
+    bank, results, by_shape, launches, per_eval, tune_cfg, seed_prompts = (
+        look[k] for k in ("bank", "results", "by_shape", "launches", "per_eval", "tune_cfg",
+                          "seed_prompts"))
+    task, res, score_fn = results[0]
     if per_eval != apps:
         raise AssertionError(f"[11a] flash_attention launched {per_eval} times an evaluation, "
                              f"not {apps}")
@@ -2562,6 +2829,448 @@ def phase_hybrid(dev: torch.device, seed: int) -> dict:
     return {"by_shape": by_shape, "launches": launches, "profiles": profiles,
             "fa_rows": fa_rows, "score_rows": score_rows, "decode_row": decode_row,
             "serve_profile": serve_profile, "cut_score_rel": worst_score, "cut_logit": worst}
+
+
+# -- phase 12 -------------------------------------------------------------------
+
+# The dense family's last three configs (phase 12): arch and layers run. At 64
+# layers command-r-plus-104b is 1.573 B parameters a layer (3.15 GB in bf16)
+# and a 6.29 GB tied embedding, 208 GB in all; cut to 16 layers, 56.6 GB.
+# Drawing the embedding takes a 12.6 GB f32 temporary beside the bf16
+# weights, so 20 layers (69.2 GB) would not leave room for it.
+DENSE_FAMILY = [("internlm2-20b", None), ("phi3-medium-14b", None),
+                ("command-r-plus-104b", 16)]
+DENSE_CUT_LAYERS = 2
+
+
+def dense_lookup(arch: str, layers, dev: torch.device, seed: int) -> dict:
+    """One dense config at full width (``layers`` deep, or its own depth),
+    bf16, weights from ``seed``: a bank of 48 candidates in 12 clusters,
+    lookups at 33 and 513 positions with flash_attention launched once a
+    layer per evaluation and no plain version run, one evaluation profiled,
+    score_ce timed at its (D, V), peak memory; then a 2-layer f32 cut of the
+    same weights, card against CPU, on Eqn-1 scores."""
+    from repro_torch.configs import get_config
+    from repro_torch.core import make_score_fn
+    from repro_torch.data import make_tasks
+    from repro_torch.models import Model
+
+    full = get_config(arch)
+    cfg = full if layers is None else full.with_overrides(num_layers=layers)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    H, Hkv, hd, V = cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size
+    free_gb = torch.cuda.mem_get_info(dev)[0] / 1e9
+    depth = (f"{cfg.num_layers} layers" if layers is None
+             else f"{cfg.num_layers} of its {full.num_layers} layers")
+    print(f"[12] {cfg.name}: {depth}, d={cfg.d_model}, H={H}, Hkv={Hkv} (group {H // Hkv}), "
+          f"hd={hd}, d_ff {cfg.d_ff}, V={V}, {cfg.norm}, parallel_block={cfg.parallel_block}, "
+          f"tied={cfg.tie_embeddings}, {cfg.dtype}; {n_params / 1e9:.3f} B parameters, "
+          f"{weight_gb:.2f} GB of weights, {torch.cuda.memory_allocated(dev) / 1e9:.2f} GB "
+          f"allocated, {free_gb:.1f} GB of the card free; drawn from seed {seed} in "
+          f"{time.perf_counter() - t0:.1f} s")
+
+    tasks = make_tasks(vocab=32, partitions=2)          # 12 families x 2 = 24 tasks
+    requests = [tasks[3], make_tasks(input_len=248, target_len=248)[9]]   # 33, 513 positions
+    kept: dict = {}
+    with recorded_attention([], kept):
+        look = bank_and_lookups(f"[12] {cfg.name}", model, requests, seed)
+    bank, results, by_shape, launches, per_eval, tune_cfg = (
+        look[k] for k in ("bank", "results", "by_shape", "launches", "per_eval", "tune_cfg"))
+    task, res, score_fn = results[0]
+    if per_eval != cfg.num_layers:
+        raise AssertionError(f"[12] {cfg.name}: flash_attention launched {per_eval} times an "
+                             f"evaluation, not {cfg.num_layers}")
+    profile = profile_calls(f"[12] one {cfg.name} evaluation at "
+                            f"{16 + score_fn.eval_batch['tokens'].shape[1]} positions",
+                            lambda: score_fn(res.entry), warm=2, reps=5, traced=2)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    print(f"[12] {cfg.name}: peak memory {peak_gb:.2f} GiB over the draw, the bank build and "
+          f"the lookups")
+    gen = torch.Generator(device=dev).manual_seed(seed + 12)
+    score_rows = score_ce_rows("[12]", cfg.name, model.output_embedding().detach(),
+                               (16 * 17, 16 * 497), gen)
+
+    # a 2-layer cut of the same weights in f32, card against CPU
+    state = cut_state(model, DENSE_CUT_LAYERS)
+    entries = [res.entry, next(bank.entries[i] for i in bank.medoid_ids
+                               if bank.entries[i] is not res.entry)]
+    del model, bank, results, score_fn
+    free_card()
+    held_err = hold_recorded(f"[12] {cfg.name}", kept)
+    del kept
+    free_card()
+    card, cpu = depth_cut(state, dev)
+    del state
+    failed, worst = [], 0.0
+    for entry in entries:
+        c = make_score_fn(cpu, task, tune_cfg)(entry)
+        g = make_score_fn(card, task, tune_cfg)(entry)
+        rel = abs(g - c) / abs(c)
+        worst = max(worst, rel)
+        print(f"[12] {cfg.name} {DENSE_CUT_LAYERS}-layer f32 cut, {task.task_id} {entry.origin}: "
+              f"cpu f32 {c:.6f}, card f32 {g:.6f} (rel {rel:.2e}, tol {F32_SCORE_RTOL})")
+        if not rel <= F32_SCORE_RTOL:
+            failed.append(entry.origin)
+    del card, cpu
+    free_card()
+    if failed:
+        raise AssertionError(f"[12] {cfg.name}: card f32 scores disagree with the CPU for "
+                             f"{failed}")
+    return {"by_shape": by_shape, "launches": launches, "per_eval": per_eval,
+            "profile": profile, "peak_gib": peak_gb, "score_rows": score_rows,
+            "cut_score_rel": worst, "layers": cfg.num_layers, "held_err": held_err}
+
+
+def phase_dense(dev: torch.device, seed: int) -> dict:
+    out = {}
+    for arch, layers in DENSE_FAMILY:
+        t0 = time.perf_counter()
+        out[arch] = dense_lookup(arch, layers, dev, seed)
+        free_card()
+        print(f"[12] {arch}: {time.perf_counter() - t0:.1f} s")
+    return out
+
+
+# -- phase 13 -------------------------------------------------------------------
+
+# prefill_32k's batch of 32 cut to 4 (qwen2-7b, 32784 positions a row with the
+# soft prompt): the step's activations, not the weights, set the size.
+PREFILL_BATCH = 4
+# long_500k's serve steps against the ring of its 8192-token window.
+LONG_STEPS = 8
+# The masked path against flash_attention (window 8192, q_offset) on the same
+# K/V, each layer by ||masked - flash|| / ||flash||. A bf16 rounding (unit
+# roundoff u = 2^-8) errs by about 0.42 u = 1.66e-3 of the value, rms over
+# the mantissas. The masked path rounds three times, as the reference's XLA
+# path does: q·k (its einsum's bf16 output), which moves each logit s by
+# about 1.66e-3 |s| and so each probability by as much relative, P, and its
+# output; flash_attention rounds only its output. Over random V these add in
+# quadrature, each as a share of the output's norm, so the gap is about
+# 1.66e-3 · sqrt(3 + E[s²]) with E[s²] weighted toward the largest scores by
+# P: 4.98e-3 measured at most over qwen2-7b's layers puts that E[s²] near 6.
+# The limit allows E[s²] up to 33; phase 13b prints each term apart
+# (masked_f32) against the attention in f32.
+LONG_MASKED_REL_TOL = 1e-2
+# 64 rows laid out before the ring's oldest position, which the window must
+# leave out of flash_attention's sum
+STALE_ROWS = 64
+
+
+@contextlib.contextmanager
+def f32_attention():
+    """Routes the model's flash_attention calls through the f32 kernel: q, k
+    and v widened (exactly), the output rounded back to their dtype."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    saved = ops.flash_attention
+    ops.flash_attention = lambda q, k, v, **kw: flash_attention(
+        q.float(), k.float(), v.float(), **kw).to(q.dtype)
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def strided_copy(x: torch.Tensor) -> torch.Tensor:
+    """A copy of ``x`` with its shape and strides (clone may make a view of
+    a wider tensor contiguous)."""
+    return x.new_empty_strided(x.shape, x.stride()).copy_(x.detach())
+
+
+@contextlib.contextmanager
+def recorded_attention(seen: list, kept: dict | None = None):
+    """Keeps the shape and strides of each flash_attention call's q, k and
+    v in ``seen``; and in ``kept``, for each distinct shape, strides and
+    keywords, copies of the first such call's q, k, v, keywords and output,
+    at their strides (hold_recorded holds them against the plain version)."""
+    from repro_torch.kernels import ops
+
+    saved = ops.flash_attention
+
+    def rec(q, k, v, **kw):
+        out = saved(q, k, v, **kw)
+        seen.append({"q": (tuple(q.shape), q.stride()), "k": (tuple(k.shape), k.stride())})
+        key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(),
+               tuple(sorted(kw.items())))
+        if kept is not None and key not in kept:
+            kept[key] = (*(strided_copy(t) for t in (q, k, v)), dict(kw), strided_copy(out))
+        return out
+    ops.flash_attention = rec
+    try:
+        yield
+    finally:
+        ops.flash_attention = saved
+
+
+def hold_recorded(label: str, kept: dict) -> float:
+    """Holds each call that recorded_attention kept, the kernel's own output
+    on the main path, against flash_attention_plain on the same inputs at
+    their strides: bf16 at fa_bf16_bound, f32 at TOL. A causal S = L call
+    longer than 4 SLICE_ROWS is held batch row by batch row in slices
+    (sliced_attention_check). Returns the largest error."""
+    from repro_torch.kernels.flash_attention import flash_attention_plain
+
+    worst = 0.0
+    for (q_shape, q_strides, k_shape, k_strides, _, _), (q, k, v, kw, out) in kept.items():
+        name = f"{label} flash_attention's call at q {q_shape} strides {q_strides}, k {k_shape} " \
+               f"strides {k_strides}, {kw}, {q.dtype}"
+        S, L = q.shape[2], k.shape[2]
+        causal_only = (kw.get("causal", True) and not kw.get("window")
+                       and not kw.get("q_offset") and kw.get("kv_len") in (None, L))
+        if S == L and S > 4 * SLICE_ROWS and causal_only:
+            for b in range(q.shape[0]):
+                res = sliced_attention_check(f"{name}, batch row {b}", q[b:b + 1], k[b:b + 1],
+                                             v[b:b + 1], out=out[b:b + 1])
+                worst = max(worst, res["err"])
+            continue
+        ref = flash_attention_plain(q, k, v, **kw)
+        rtol, atol = (fa_bf16_bound(ref) if q.dtype == torch.bfloat16
+                      else (TOL[q.dtype], TOL[q.dtype]))
+        err = check_close(name, out, ref, rtol, atol)
+        worst = max(worst, err)
+        print(f"{name}: the main path's output against the plain version, max abs err "
+              f"{err:.3e} (rtol {rtol}, atol {atol:.2e})")
+        del ref
+    return worst
+
+
+@contextlib.contextmanager
+def recorded_masked_decode(calls: list):
+    """Keeps each masked decode attention's inputs (copies: the cache is
+    written in place by later steps) and output."""
+    from repro_torch.models import attention
+
+    saved = attention._masked_decode_attention
+
+    def rec(q, k, v, pos, q_pos, window):
+        out = saved(q, k, v, pos, q_pos, window)
+        calls.append((q.clone(), k.clone(), v.clone(), pos.clone(), q_pos, window, out))
+        return out
+    attention._masked_decode_attention = rec
+    try:
+        yield
+    finally:
+        attention._masked_decode_attention = saved
+
+
+def long_attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, dev) -> dict:
+    """flash_attention in bf16, causal at S = L too long for the plain
+    version whole: held in slices (sliced_attention_check), timed beside
+    the plain slices, one SDPA call and the bound."""
+    from repro_torch.kernels.flash_attention import flash_attention
+
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+            for _ in range(2))
+    shape = f"B={B} H={H} Hkv={Hkv} S=L={S} hd={hd} causal bf16"
+    held = sliced_attention_check(f"{label} flash_attention {shape}", q, k, v)
+    pairs = S * (S + 1) // 2
+    b_ms, b_by = bound(4.0 * B * H * pairs * hd,
+                       (2 * B * H + 2 * B * Hkv) * S * hd * q.element_size(), PEAK_BF16_FLOPS)
+    row = {"shape": shape, "ms": time_ms(lambda: flash_attention(q, k, v, causal=True), reps=10),
+           "plain_ms": held["plain_ms"],
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True, enable_gqa=H != Hkv), reps=10),
+           "bound_ms": b_ms, "bound_by": b_by, "max_abs_err": held["err"]}
+    print(f"{label} flash_attention {shape}: kernel {row['ms']:.4f} ms, plain (in "
+          f"{-(-S // SLICE_ROWS)} slices) {row['plain_ms']:.1f} ms, library (SDPA) "
+          f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    kernel_launches(f"{label} flash_attention S={S} hd={hd}",
+                    lambda: flash_attention(q, k, v, causal=True), calls=1)
+    return row
+
+
+def masked_f32(q, k, v, pos, q_pos: int, window: int, *, round_scores=False, round_p=False):
+    """The masked decode path's attention (models/attention.py
+    _masked_decode_attention) in f32 on the same bf16 inputs, with q·k and
+    P rounded to bf16 only where asked, and its output not rounded."""
+    B, _, H, hd = q.shape
+    Hkv = k.shape[2]
+    s = torch.einsum("bshgd,blhd->bhgsl", q.float().reshape(B, 1, Hkv, H // Hkv, hd), k.float())
+    if round_scores:
+        s = s.to(torch.bfloat16).float()
+    live = (pos >= 0) & (pos <= q_pos) & (pos > q_pos - window)
+    p = torch.softmax((s / hd ** 0.5).masked_fill(~live[:, None, None, None, :], -float("inf")),
+                      dim=-1)
+    if round_p:
+        p = p.to(torch.bfloat16).float()
+    return torch.einsum("bhgsl,blhd->bshgd", p, v.float()).reshape(B, 1, H, hd)
+
+
+def ring_positions(cache_len: int, slots: int, dev) -> torch.Tensor:
+    """The position each slot of a ``slots``-slot ring holds once positions
+    0 .. cache_len - 1 were written at slot position % slots."""
+    s = torch.arange(slots, device=dev, dtype=torch.int64)
+    return ((cache_len - 1) - ((cache_len - 1 - s) % slots)).to(torch.int32)
+
+
+def phase_long_shapes(dev: torch.device, seed: int) -> dict:
+    """qwen2-7b at full width and depth, bf16, weights from --seed, at the
+    two input shapes no other phase runs: (a) prefill_32k through
+    make_prefill_step, the batch cut to PREFILL_BATCH; (b) long_500k through
+    model_for_shape's 8192-token window, at batch 1."""
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.score_ce import score_ce
+    from repro_torch.launch import make_prefill_step, make_serve_step, model_for_shape
+    from repro_torch.models import Model, prompt_from_arrays
+
+    cfg = get_config("qwen2-7b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    H, Hkv, hd, V, d = (cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size,
+                        cfg.d_model)
+    print(f"[13] {cfg.name}: {cfg.num_layers} layers, d={d}, H={H}, Hkv={Hkv}, hd={hd}, V={V}, "
+          f"{cfg.dtype}; drawn from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed + 13)
+    rng = np.random.default_rng(seed)
+
+    # (a) prefill_32k
+    shape = INPUT_SHAPES["prefill_32k"]
+    B, S, P = PREFILL_BATCH, shape.seq_len, 16
+    batch = {"tokens": torch.randint(3, V, (B, S), generator=gen, device=dev, dtype=torch.int32),
+             "labels": torch.randint(0, V, (B, S), generator=gen, device=dev,
+                                     dtype=torch.int32),
+             "mask": torch.ones(B, S, device=dev)}
+    prompt = prompt_from_arrays({"soft_prompt": rng.normal(0, 0.5 / np.sqrt(d), (P, d))
+                                 .astype(np.float32)}, dev)
+    prefill = make_prefill_step(model)
+    print(f"[13a] {shape.name}: {S} tokens + a {P}-position soft prompt, batch "
+          f"{shape.global_batch} -> {B} (cut: the step's activations, not the weights, set "
+          f"the size)")
+    flash_attention.launches = score_ce.launches = 0
+    calls, seen, kept = {}, [], {}
+    torch.cuda.reset_peak_memory_stats(dev)
+    with plain_calls(calls), recorded_attention(seen, kept):
+        t = time.perf_counter()
+        per_ex = prefill(prompt, batch)
+        torch.cuda.synchronize()
+        first_s = time.perf_counter() - t
+    launches = {"flash_attention": flash_attention.launches, "score_ce": score_ce.launches}
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 2**30
+    q_shape, q_strides = seen[0]["q"]
+    grid = (q_shape[1], q_shape[0], -(-q_shape[2] // 64))
+    last = sum((n - 1) * st for n, st in zip(q_shape, q_strides))
+    print(f"[13a] per-example losses {[round(x, 6) for x in per_ex.tolist()]}; first step "
+          f"{first_s:.3f} s; peak memory {peak_gb:.2f} GiB; launches {launches}; plain-version "
+          f"calls {calls}")
+    print(f"[13a] flash_attention's q {q_shape} strides {q_strides} (elements; the kernel takes "
+          f"them as long long, the last element at offset {last}, 2^31 = {2 ** 31}); bf16 grid "
+          f"(H, B, S/64) = {grid}, z at most 65535")
+    if (launches["flash_attention"] != cfg.num_layers or launches["score_ce"] <= 0
+            or any(calls.values())):
+        raise AssertionError(f"[13a] the prefill step did not launch flash_attention once a "
+                             f"layer and score_ce, or a plain version ran: {launches} {calls}")
+    if not torch.isfinite(per_ex).all() or per_ex.shape != (B,) or grid[2] > 65535:
+        raise AssertionError(f"[13a] the prefill step gave {per_ex} (grid {grid})")
+    # layer 0's call as the step made it: every batch row at its strides and
+    # 32784 positions, the last 64-row tile ragged
+    held_err = hold_recorded("[13a]", kept)
+    del kept
+    one = {k: v[:1] for k, v in batch.items()}
+    with f32_attention():
+        per_f32 = prefill(prompt, one)
+    rel = abs(per_f32[0].item() - per_ex[0].item()) / abs(per_f32[0].item())
+    print(f"[13a] example 0 with the attention in f32 (the f32 kernel): {per_f32[0].item():.6f} "
+          f"against {per_ex[0].item():.6f} in bf16, rel {rel:.2e} (tol {BF16_SCORE_RTOL})")
+    if not rel <= BF16_SCORE_RTOL:
+        raise AssertionError("[13a] the bf16 prefill step's loss disagrees with f32 attention's")
+    step = step_profile(f"[13a] one prefill step, batch {B} x {S + P} positions",
+                        lambda: prefill(prompt, batch), B * (S + P), warm=0, reps=1, traced=1)
+    step.update(peak_gib=peak_gb, per_example=per_ex.tolist(), f32_rel=rel, launches=launches,
+                held_err=held_err)
+    del batch, one, per_ex, per_f32
+    free_card()
+    fa_row = long_attention_row("[13a]", 1, H, Hkv, S, hd, gen, dev)
+    fa_row.update(launches=launches["flash_attention"])
+    free_card()
+
+    # (b) long_500k: the same weights with model_for_shape's window
+    shape = INPUT_SHAPES["long_500k"]
+    lcfg = model_for_shape(cfg, shape)
+    del model
+    free_card()
+    model = Model(lcfg, device=dev, seed=seed)
+    cache = model.init_cache(1, shape.seq_len)
+    kv = cache["blocks"]["kv"]
+    slots = kv["k"].shape[2]
+    filled = shape.seq_len - LONG_STEPS                 # the steps reach position seq_len - 1
+    pos = ring_positions(filled, slots, dev)
+    for i in range(cfg.num_layers):
+        kv["k"][i].normal_(generator=gen)
+        kv["v"][i].normal_(generator=gen)
+        kv["pos"][i, 0] = pos
+    print(f"[13b] {shape.name}: window {lcfg.sliding_window} (model_for_shape), ring of {slots} "
+          f"slots at batch {shape.global_batch}, seeded with K/V at positions "
+          f"{int(pos.min())}..{int(pos.max())} (cache_len {filled})")
+    serve = make_serve_step(model)
+    tok = torch.randint(3, V, (1, 1), generator=gen, device=dev, dtype=torch.int32)
+    flash_decode.launches = flash_attention.launches = 0
+    masked, calls, step_s = [], {}, []
+    with plain_calls(calls):
+        for i in range(LONG_STEPS):
+            t = time.perf_counter()
+            with recorded_masked_decode(masked) if i == 0 else contextlib.nullcontext():
+                tok, cache = serve(cache, tok, filled + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    if (flash_decode.launches or flash_attention.launches or any(calls.values())
+            or len(masked) != cfg.num_layers):
+        raise AssertionError(f"[13b] the long_500k step should take the masked path in every "
+                             f"layer ({len(masked)} of {cfg.num_layers}) and launch no "
+                             f"attention kernel: flash_decode {flash_decode.launches}, "
+                             f"flash_attention {flash_attention.launches}, plain {calls}")
+    if not ((tok >= 0) & (tok < V)).all():
+        raise AssertionError("[13b] serve step produced tokens outside the vocabulary")
+    gaps, terms = [], []
+    for q, k, v, kpos, q_pos, window, out in masked:
+        order = torch.argsort(kpos[0])
+        kk, vv = (t[:, order].transpose(1, 2) for t in (k, v))    # (B, Hkv, L, hd), by position
+        stale = torch.randn(1, Hkv, STALE_ROWS, hd, generator=gen, device=dev).to(kk.dtype)
+        kk, vv = torch.cat([stale, kk], dim=2), torch.cat([stale, vv], dim=2)
+        first = int(kpos[0, order[0]])
+        if int(kpos[0, order[-1]]) != q_pos or q_pos - first + 1 != window:
+            raise AssertionError(f"[13b] the ring holds positions {first}..{int(kpos[0, order[-1]])} "
+                                 f"at q_pos {q_pos}, window {window}")
+        ref = flash_attention(q.transpose(1, 2).contiguous(), kk, vv, causal=True, window=window,
+                              q_offset=q_pos - first + STALE_ROWS)
+        gaps.append(rel_gap(out.transpose(1, 2).float(), ref.float()))
+        exact = masked_f32(q, k, v, kpos, q_pos, window)
+        terms.append([rel_gap(x.float(), exact) for x in (
+            out, ref.transpose(1, 2), masked_f32(q, k, v, kpos, q_pos, window, round_scores=True),
+            masked_f32(q, k, v, kpos, q_pos, window, round_p=True), exact.to(out.dtype))])
+    print(f"[13b] masked path against flash_attention (window {lcfg.sliding_window}, "
+          f"q_offset, {STALE_ROWS} stale rows before the window) on the first step's K/V, "
+          f"||masked - flash|| / ||flash|| per layer: max {max(gaps):.3e} (tol "
+          f"{LONG_MASKED_REL_TOL}); by layer {[f'{g:.2e}' for g in gaps]}")
+    worst_terms = [max(t[i] for t in terms) for i in range(5)]
+    print("[13b] each against the attention in f32 on the same K/V (masked_f32), "
+          "||x - f32|| / ||f32||, the largest over the layers: masked path {:.3e}, "
+          "flash_attention {:.3e}; q·k rounded to bf16 alone {:.3e}, P rounded alone {:.3e}, "
+          "the output rounded alone {:.3e}".format(*worst_terms))
+    if not max(gaps) <= LONG_MASKED_REL_TOL:
+        raise AssertionError("[13b] the masked decode path disagrees with flash_attention")
+    med = statistics.median(step_s[1:])
+    print(f"[13b] {LONG_STEPS} serve steps at cache_len {filled}..{shape.seq_len - 1}: "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms; median (steps 2..) {med * 1e3:.2f} ms, "
+          f"{1 / med:.1f} tokens/s")
+    prof = profile_calls(f"[13b] one {shape.name} serve step at batch 1, cache_len "
+                         f"{shape.seq_len - 1}", lambda: serve(cache, tok, shape.seq_len - 1),
+                         warm=1, reps=5, traced=2)
+    del model, cache, kv, masked
+    free_card()
+    return {"prefill": step, "fa_row": fa_row,
+            "long": {"step_ms": med * 1e3, "tokens_per_s": 1 / med, "profile": prof,
+                     "masked_gap": max(gaps), "masked_terms": worst_terms}}
 
 
 # -- phase 9 --------------------------------------------------------------------
@@ -3332,7 +4041,8 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
-                 pre: dict, service: dict, hybrid: dict) -> list:
+                 pre: dict, service: dict, hybrid: dict, dense: dict, shapes: dict,
+                 fa_split: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -3367,18 +4077,27 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                           (rwkv_tune, rtune["launches"].get(name)),
                           (pretraining, pre["launches"].get(name))) if n is not None}
     svc = lambda name: service["by_label"].get(name, {})
+    prefill = shapes["prefill"]
+    prefill_path = f"qwen2-7b, prefill_32k (1 step, batch {PREFILL_BATCH})"
+    family = lambda name: {k: n for arch, r in dense.items()
+                           for k, n in path(arch, r["by_shape"][name]).items()}
     paths = {  # name -> (rows at the paths' shapes, launches by path and shape)
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
-                     + hybrid["score_rows"] + bwd["rows"]["score_ce"],
+                     + hybrid["score_rows"]
+                     + [r for arch in dense.values() for r in arch["score_rows"]]
+                     + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
                       **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
                       **path("zamba2-7b", hybrid["by_shape"]["score_ce"]),
+                      **family("score_ce"), prefill_path: prefill["launches"]["score_ce"],
                       **tuning("score_ce"), **svc("score_ce")}),
-        "flash_attention": (rows["flash_attention"] + hybrid["fa_rows"]
+        "flash_attention": (rows["flash_attention"] + hybrid["fa_rows"] + [shapes["fa_row"]]
                             + bwd["rows"]["flash_attention"],
                             {**path("gpt2-base", launches["by_shape"]["flash_attention"]),
                              **path("zamba2-7b", hybrid["by_shape"]["flash_attention"]),
+                             **family("flash_attention"),
+                             prefill_path: prefill["launches"]["flash_attention"],
                              **tuning("flash_attention"), **svc("flash_attention")}),
         "score_ce_bwd": (bwd["rows"]["score_ce_bwd"],
                          {**tuning("score_ce_bwd"), **svc("score_ce_bwd")}),
@@ -3401,6 +4120,7 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
              **({"counterpart": "none: the reference differentiates through XLA"}
                 if name.endswith(("_bwd", "_de")) else {}),
              **({"dq_run_to_run": bwd["dq_run_to_run"]} if name == "flash_attention_bwd" else {}),
+             **({"p_split_cost": fa_split["cost"]} if name == "flash_attention" else {}),
              "launches": sum(by_shape.values()),
              "launches_by_shape": by_shape, "max_abs_err": worst[name],
              **{k: rs[0][k] for k in keys}, "shapes": [{k: r[k] for k in keys} for r in rs[1:]]}
@@ -3419,8 +4139,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    card = phase_build()
-    worst = phase_kernels(dev, args.seed)
+    card, one_term = phase_build()
+    worst, fa_split = phase_kernels(dev, args.seed, one_term)
     model, bank, results, launches = phase_slice(dev, args.seed)
     ref_cpu = phase_rescore(model, bank, results, args.seed)
     rows = phase_times(model, args.seed)
@@ -3440,9 +4160,12 @@ def main() -> None:
     mla_serve = phase_mla_serve(dev, args.seed)
     free_card()
     hybrid = phase_hybrid(dev, args.seed)
+    free_card()
+    dense = phase_dense(dev, args.seed)
+    shapes = phase_long_shapes(dev, args.seed)
 
     kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
-                           pre, service, hybrid)
+                           pre, service, hybrid, dense, shapes, fa_split)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

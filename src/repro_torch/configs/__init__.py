@@ -1,5 +1,6 @@
 """Configurations of the models the port runs so far: dense GQA decoders
-(the paper's gpt2-base, gpt2-large and vicuna-7b among them), the RWKV6
+(the paper's gpt2-base, gpt2-large and vicuna-7b among them, and
+command-r-plus-104b's parallel LayerNorm block), the RWKV6
 family, the MLA + MoE family and the Zamba2 hybrid (Mamba2 + shared
 attention).
 
@@ -15,10 +16,13 @@ import dataclasses
 from typing import Callable, Dict, List
 
 from repro_torch.config import ModelConfig
+from repro_torch.configs.command_r_plus_104b import command_r_plus_104b
 from repro_torch.configs.deepseek_v2_236b import deepseek_v2_236b
 from repro_torch.configs.gpt2_base import gpt2_base
 from repro_torch.configs.gpt2_large import gpt2_large
+from repro_torch.configs.internlm2_20b import internlm2_20b
 from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
+from repro_torch.configs.phi3_medium_14b import phi3_medium_14b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
 from repro_torch.configs.vicuna_7b import vicuna_7b
@@ -33,8 +37,8 @@ def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:
     return fn
 
 
-for _fn in (deepseek_v2_236b, gpt2_base, gpt2_large, kimi_k2_1t_a32b, qwen2_7b, rwkv6_7b,
-            vicuna_7b, zamba2_7b):
+for _fn in (command_r_plus_104b, deepseek_v2_236b, gpt2_base, gpt2_large, internlm2_20b,
+            kimi_k2_1t_a32b, phi3_medium_14b, qwen2_7b, rwkv6_7b, vicuna_7b, zamba2_7b):
     register(_fn)
 
 

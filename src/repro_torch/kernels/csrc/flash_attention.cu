@@ -35,10 +35,15 @@
 //     live column. The running max starts at −1e30, the TPU kernel's masking
 //     constant, and masked scores get probability exactly 0. Each lane keeps
 //     a partial row sum; the four lanes of a row add theirs once, at the end.
-//   - P·V: the probabilities stay in registers. The accumulators of two n8
-//     tiles, rounded to bf16, are the A operand of m16n8k16 (warp_tile.cuh);
-//     V's fragments come from its row-major tile by ldmatrix.trans. P is
-//     rounded to bf16 as the reference's XLA path rounds it to v's dtype.
+//   - P·V: the probabilities stay in registers, and in f32 as the TPU kernel
+//     keeps them (it casts v to f32 and takes p·v in f32). One bf16 P errs by
+//     up to 2^-8 of each probability, so P = P_hi + P_lo, two bf16 terms
+//     (P_lo the rounded remainder: together within 2^-16 of P). The score
+//     accumulators of two n8 tiles, split so, are the A operands of two
+//     m16n8k16 products (warp_tile.cuh) against the same V fragments, into
+//     the same f32 accumulators: a second P·V product a k-step, since all 16
+//     rows of the A tile are live (flash_decode's spare rows do not exist
+//     here). V's fragments come from its row-major tile by ldmatrix.trans.
 // Shared memory: hd = 64 45 KB, hd = 112 75 KB, hd = 128 85 KB.
 //
 // Head dims 64, 112 (zamba2-7b's shared attention) and 128 are
@@ -87,6 +92,16 @@ struct TcLayout {
   static constexpr int TILE = kColsK * LD;
   static constexpr int bytes = 2 * (kRowsQ * LD + 2 * 2 * TILE);
 };
+
+// Two probabilities as P_hi + P_lo: hi = (a, b) rounded to bf16, lo = the
+// remainders (exact in f32) rounded to bf16, so hi + lo is within 2^-16 of
+// (a, b); lo in the low half as pack_bf16 orders them.
+__device__ __forceinline__ void split_bf16(float a, float b, uint32_t& hi, uint32_t& lo) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(a, b);
+  const float2 f = __bfloat1622float2(h);
+  hi = *reinterpret_cast<const uint32_t*>(&h);
+  lo = pack_bf16(a - f.x, b - f.y);
+}
 
 // Starts the copy of rows [row0, row0 + 64) of a (nrows × HD) matrix, row
 // stride ld, into a [64][HD + 8] tile; rows past nrows are zero-filled.
@@ -241,20 +256,23 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
       oacc[n][2] *= alpha_b; oacc[n][3] *= alpha_b;
     }
 
-    // O += P·V: P (in sa) packed to bf16 is the A operand, V's fragments come
-    // from its row-major tile by ldmatrix.trans
+    // O += P·V: P (in sa) split into P_hi + P_lo, two bf16 A operands against
+    // the same V fragments (ldmatrix.trans from V's row-major tile)
 #pragma unroll
     for (int kk = 0; kk < 4; ++kk) {   // depth: the tile's columns 16·kk .. 16·kk + 15
-      const uint32_t pf[4] = {pack_bf16(sa[2 * kk][0], sa[2 * kk][1]),
-                              pack_bf16(sa[2 * kk][2], sa[2 * kk][3]),
-                              pack_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1]),
-                              pack_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3])};
+      uint32_t ph[4], pl[4];
+      split_bf16(sa[2 * kk][0], sa[2 * kk][1], ph[0], pl[0]);
+      split_bf16(sa[2 * kk][2], sa[2 * kk][3], ph[1], pl[1]);
+      split_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1], ph[2], pl[2]);
+      split_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3], ph[3], pl[3]);
 #pragma unroll
       for (int n = 0; n < NO; n += 2) {
         uint32_t bf[4];
         ldmatrix_x4_trans(bf, vs + b_cols(LD) + 16 * kk * LD + 8 * n);
-        mma_bf16(oacc[n], pf, bf[0], bf[1]);
-        mma_bf16(oacc[n + 1], pf, bf[2], bf[3]);
+        mma_bf16(oacc[n], ph, bf[0], bf[1]);
+        mma_bf16(oacc[n + 1], ph, bf[2], bf[3]);
+        mma_bf16(oacc[n], pl, bf[0], bf[1]);
+        mma_bf16(oacc[n + 1], pl, bf[2], bf[3]);
       }
     }
   }

@@ -231,7 +231,8 @@ def test_gqa_decode_raises_once_the_cache_wraps(monkeypatch):
 
 # -- the model's decode step -------------------------------------------------------
 
-DECODE_ARCHS = [("qwen2-7b", 0), ("gpt2-base", 0), ("qwen2-7b", 4)]   # (arch, sliding window)
+DECODE_ARCHS = [("qwen2-7b", 0), ("gpt2-base", 0), ("qwen2-7b", 4),   # (arch, sliding window)
+                ("command-r-plus-104b", 0), ("internlm2-20b", 0), ("command-r-plus-104b", 4)]
 
 
 def _model_pair(arch, window, seed=2):
@@ -262,6 +263,67 @@ def test_decode_step_matches_jax(arch, window):
         _close(logits, jlogits, MODEL_TOL)
     for name in ("k", "v", "pos"):
         _close(cache["blocks"]["kv"][name], jcache["blocks"]["kv"][name], MODEL_TOL)
+
+
+def _ring_positions(cache_len, slots):
+    """The position each slot of a ring holds once positions 0 .. cache_len - 1
+    were written at slot position % slots (chip_smoke.ring_positions)."""
+    s = np.arange(slots)
+    return ((cache_len - 1) - ((cache_len - 1 - s) % slots)).astype(np.int32)
+
+
+def test_long_500k_decode_past_the_ring_wrap_matches_jax():
+    """long_500k through model_for_shape on qwen2-7b's smoke cut: an
+    8192-slot ring of the window (init_cache at 524288 tokens), seeded with
+    K/V at the positions it holds at cache_len 524286, then the two steps to
+    position 524287, each writing over the slot of a position that leaves
+    the window. Logits per step and every cache leaf after, against the
+    reference's.
+
+    The reference runs eagerly: jitted, XLA folds RoPE's frequencies
+    1 / theta ** (2i / hd) to other f32 values (one ulp in 10 of 32 at hd
+    64), and an f32 angle of position x frequency near 5e5 turns that ulp
+    into about 0.02 rad, so the jitted step's keys and queries part from
+    the eager ones (and the port's) by about 2e-2. Eager, its frequencies
+    are the port's bit for bit."""
+    from repro.config import INPUT_SHAPES as JSHAPES
+    from repro.launch.steps import model_for_shape as jmodel_for_shape
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.launch import model_for_shape
+
+    shape = INPUT_SHAPES["long_500k"]
+    jcfg = jmodel_for_shape(jax_smoke_config("qwen2-7b"), JSHAPES["long_500k"])
+    cfg = model_for_shape(smoke_config("qwen2-7b"), shape)
+    assert cfg.sliding_window == jcfg.sliding_window == 8192
+    jmodel = build_model(jcfg)
+    tree = numpy_params(jmodel, seed=6)
+    model = Model(cfg, device="cpu", seed=None)
+    model.load_state_dict(params_from_jax(tree))
+    params = jax.tree.map(jnp.asarray, tree)
+    B, steps = 1, 2
+    start = shape.seq_len - steps
+    jcache, cache = jmodel.init_cache(B, shape.seq_len), model.init_cache(B, shape.seq_len)
+    kv = cache["blocks"]["kv"]
+    layers, _, slots, Hkv, hd = kv["k"].shape
+    assert slots == 8192 and jcache["blocks"]["kv"]["k"].shape == kv["k"].shape
+    rng = np.random.default_rng(11)
+    arrays = {"k": rng.normal(size=kv["k"].shape).astype(np.float32),
+              "v": rng.normal(size=kv["v"].shape).astype(np.float32),
+              "pos": np.broadcast_to(_ring_positions(start, slots), kv["pos"].shape).copy()}
+    jcache = {"blocks": {"kv": {k: jnp.asarray(a) for k, a in arrays.items()}}}
+    for name, a in arrays.items():
+        kv[name].copy_(torch.from_numpy(a))
+    tokens = rng.integers(3, 512, (B, steps)).astype(np.int32)
+    for t in range(steps):
+        with jax.disable_jit():
+            jlogits, jcache = jmodel.decode_step(params, jcache, jnp.asarray(tokens[:, t:t + 1]),
+                                                 jnp.int32(start + t))
+        logits, cache = model.decode_step(cache, torch.from_numpy(tokens[:, t:t + 1]), start + t)
+        _close(logits, jlogits, MODEL_TOL)
+    for name in ("k", "v", "pos"):
+        _close(cache["blocks"]["kv"][name], jcache["blocks"]["kv"][name], MODEL_TOL)
+    written = (start + np.arange(steps)) % slots
+    assert (cache["blocks"]["kv"]["pos"][0, 0, written].numpy() == start + np.arange(steps)).all()
 
 
 def test_serve_step_tokens_match_jax():

@@ -5,8 +5,12 @@ tests/test_kernels.py runs them on the CPU), to their ``kernels/ref.py``
 oracles, and to the port's plain PyTorch versions, which are what the
 port's wrappers run on CPU tensors. The CUDA kernels themselves run only on
 the card: ``test_cuda_kernels_match_plain`` holds them against the plain
-versions there and skips elsewhere.
+versions there and skips elsewhere. ``fa_pv_mirror`` restates the bf16
+``flash_attention`` kernel's softmax and P·V (P = P_hi + P_lo) on the CPU:
+change it with ``csrc/flash_attention.cu``.
 """
+import math
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -163,6 +167,88 @@ def test_gqa_flash_rejects_oversized_head_dim():
         ops.gqa_flash(x, x, x)
 
 
+# -- the bf16 flash_attention's P·V, restated ----------------------------------------
+
+def split_bf16(p: torch.Tensor):
+    """P_hi + P_lo as csrc/flash_attention.cu's split_bf16 forms them: P
+    rounded to bf16, and the (exact f32) remainder rounded to bf16."""
+    hi = p.to(torch.bfloat16).float()
+    return hi, (p - hi).to(torch.bfloat16).float()
+
+
+def fa_pv_mirror(q, k, v, *, causal=True, window=0, q_offset=0, kv_len=None, split=True):
+    """csrc/flash_attention.cu's bf16 forward in f32 on the CPU, before its
+    output is rounded to bf16: KV tiles of 64 columns; the running max of
+    the scores in base 2 (scale·log2 e) from -1e30; P = 2^(s·c - m) with
+    masked scores at probability 0; each row's sum of P in f32; P·V with P
+    as P_hi + P_lo (``split``) or as one bf16 P (the kernel before the
+    split); the accumulators rescaled by 2^(m_old - m_new) each tile; the
+    output the accumulators over the sum. q, k, v hold bf16 values."""
+    B, H, S, hd = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    kf, vf = (t.float().repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    c = math.log2(math.e) / math.sqrt(hd)
+    live_len = min(L, L if kv_len is None else kv_len)
+    qpos = q_offset + torch.arange(S)[:, None]
+    m = torch.full((B, H, S), -1e30)
+    l, acc = torch.zeros(B, H, S), torch.zeros(B, H, S, hd)
+    for j0 in range(0, L, 64):
+        cols = torch.arange(j0, min(L, j0 + 64))[None, :]
+        live = cols < live_len
+        if causal:
+            live = live & (cols <= qpos)
+        if window:
+            live = live & (cols > qpos - window)
+        s = torch.einsum("bhsd,bhld->bhsl", q.float(), kf[:, :, j0:j0 + 64])
+        s = s.masked_fill(~live, -math.inf)
+        m_new = torch.maximum(m, s.amax(dim=-1) * c)
+        alpha = torch.exp2(m - m_new)
+        p = torch.exp2(s * c - m_new[..., None])
+        l = l * alpha + p.sum(dim=-1)
+        terms = split_bf16(p) if split else (p.to(torch.bfloat16).float(),)
+        acc = acc * alpha[..., None] + sum(t @ vf[:, :, j0:j0 + 64] for t in terms)
+        m = m_new
+    return acc / l.clamp_min(1e-30)[..., None]
+
+
+def test_split_bf16_reproduces_f32_p_to_2_16():
+    """P_hi + P_lo is within 2^-16 of every f32 probability (the remainder is
+    exact in f32, and rounding it errs by 2^-8 of itself); one bf16 P errs
+    by up to 2^-8, 2^-9 and more for most."""
+    rng = np.random.default_rng(16)
+    p = torch.from_numpy(np.exp2(-30 * rng.random(100_000)).astype(np.float32))
+    p = torch.cat([p, torch.tensor([1.0, 0.5, 2.0 ** -20, 1 + 2.0 ** -8, 1 - 2.0 ** -24])])
+    hi, lo = split_bf16(p)
+    assert ((hi + lo - p).abs() / p).max().item() <= 2.0 ** -16
+    one = (hi - p).abs() / p
+    assert one.max().item() <= 2.0 ** -8
+    assert one.max().item() > 2.0 ** -9 and (one > 2.0 ** -16).float().mean().item() > 0.9
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,L,hd,kw", [
+    (1, 2, 2, 70, 70, 64, {}),                                         # two KV tiles, ragged
+    (2, 6, 1, 33, 130, 128, {"window": 40, "q_offset": 97, "kv_len": 120}),   # G = 6
+    (1, 4, 4, 17, 17, 112, {}),                                        # hd 112
+    (1, 12, 1, 9, 200, 64, {"q_offset": 191}),                         # G = 12, far along
+    (1, 2, 2, 40, 150, 64, {"causal": False, "kv_len": 131}),
+])
+def test_fa_pv_mirror_matches_plain(B, H, Hkv, S, L, hd, kw):
+    """With P split the mirror is flash_attention_plain in f32 up to 2^-16 of
+    each probability: |out - plain| <= 2^-16 · max|v| (P·V over the row's
+    sum weighs each v by P / sum) beside f32 rounding. With one bf16 P the
+    same bound fails."""
+    rng = np.random.default_rng(B * H + S + L)
+    q, k, v = (torch.from_numpy(rng.normal(size=shape).astype(np.float32)).bfloat16()
+               for shape in ((B, H, S, hd), (B, Hkv, L, hd), (B, Hkv, L, hd)))
+    kw = {"causal": True, **kw}
+    ref = flash_attention_plain(q.float(), k.float(), v.float(), **kw)
+    atol = 2.0 ** -16 * v.float().abs().max().item()
+    np.testing.assert_allclose(fa_pv_mirror(q, k, v, **kw).numpy(), ref.numpy(), rtol=1e-5,
+                               atol=atol)
+    one_term = fa_pv_mirror(q, k, v, split=False, **kw) - ref
+    assert (one_term.abs() > atol + 1e-5 * ref.abs()).any()
+
+
 # -- on the card -----------------------------------------------------------------
 
 @pytest.fixture
@@ -195,13 +281,18 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             (2, 4, 2, 65, 130, 64, {"causal": False, "kv_len": 100}),
             (2, 4, 4, 65, 65, 112, {}),                               # hd 112, MHA
             (2, 8, 2, 65, 200, 112, {"q_offset": 135, "window": 70}),
-            (2, 4, 4, 1, 513, 112, {"q_offset": 512})]:
+            (2, 4, 4, 1, 513, 112, {"q_offset": 512}),
+            (1, 12, 2, 130, 130, 128, {})]:                           # G = 6
         q = torch.randn(B, H, S, hd, generator=gen, device=cuda_device).to(dtype)
         k = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
         v = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
-        torch.testing.assert_close(flash_attention(q, k, v, **kw).float(),
-                                   flash_attention_plain(q, k, v, **kw).float(),
-                                   rtol=tol, atol=tol)
+        want = flash_attention_plain(q, k, v, **kw).float()
+        # in bf16 the kernel keeps P in f32 (P_hi + P_lo), so both round an
+        # f32 result once, as flash_decode's bound below says
+        rtol, atol = ((tol, tol) if dtype == torch.float32
+                      else (1e-2, 1e-3 * want.abs().max().item()))
+        torch.testing.assert_close(flash_attention(q, k, v, **kw).float(), want,
+                                   rtol=rtol, atol=atol)
     for B, H, Hkv, hd, L, kw in [
             (3, 4, 2, 64, 100, {}),
             (3, 28, 4, 128, 100, {"kv_len": 90, "window": 30}),

@@ -2,7 +2,10 @@
 
 gpt2-base's smoke config is LayerNorm, GELU, QKV bias, tied embeddings and
 GQA 4/2; qwen2-7b's is RMSNorm, SwiGLU and untied embeddings; gpt2-large's
-and vicuna-7b's (the paper's other two evaluation models) cut the same way. The weights
+and vicuna-7b's (the paper's other two evaluation models) cut the same way;
+internlm2-20b's and phi3-medium-14b's are RMSNorm, SwiGLU, untied and no
+bias; command-r-plus-104b's is the parallel block (attention and FFN both
+read one LayerNorm of the input) with SwiGLU, no bias and tied embeddings. The weights
 are made with numpy in the JAX parameter tree's shapes and handed to both
 packages: the reference's own init draws wq with std 1/sqrt(H), whose sharp
 attention amplifies f32 rounding to ~5e-5 in the logits, while weights at
@@ -24,7 +27,8 @@ from repro_torch.models import common
 from repro_torch.train import lpt_loss, token_cross_entropy
 
 TOL = 1e-5
-ARCHS = ["gpt2-base", "qwen2-7b", "gpt2-large", "vicuna-7b"]
+ARCHS = ["gpt2-base", "qwen2-7b", "gpt2-large", "vicuna-7b", "internlm2-20b",
+         "phi3-medium-14b", "command-r-plus-104b"]
 
 
 def numpy_params(jmodel, seed):
@@ -161,7 +165,8 @@ def test_load_jax_checkpoint_roundtrip(tmp_path):
 
 @pytest.mark.parametrize("arch", ["gpt2-base", "gpt2-large", "vicuna-7b", "qwen2-7b",
                                   "rwkv6-7b", "deepseek-v2-236b", "kimi-k2-1t-a32b",
-                                  "zamba2-7b"])
+                                  "zamba2-7b", "internlm2-20b", "phi3-medium-14b",
+                                  "command-r-plus-104b"])
 def test_config_equals_the_reference_field_by_field(arch):
     """Every config the port registers is the reference's, field by field,
     and so is its smoke cut."""

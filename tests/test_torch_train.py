@@ -387,14 +387,30 @@ def test_make_train_step_matches_jax(microbatches):
         assert rel_norm(ours[above], ref[above]) <= GRAD_TOL
 
 
-def test_make_prefill_step_matches_jax():
-    jmodel, params, model = pair("gpt2-base")
-    sp = (np.random.default_rng(9).normal(size=(P, model.cfg.d_model)) * 0.1).astype(np.float32)
-    b = batches(1, 60, B=3)[0]
-    ref = jax_make_prefill_step(jmodel, ce_chunk=7)(params, {"soft_prompt": jnp.asarray(sp)},
-                                                    jbatch(b))
-    per = make_prefill_step(model, ce_chunk=7)({"soft_prompt": torch.from_numpy(sp)}, tbatch(b))
+def prefill_parity(arch: str, seed: int, b: dict, ce_chunk: int) -> None:
+    """make_prefill_step on ``arch``'s smoke cut against the reference's on
+    batch ``b``, per-example losses at LOSS_TOL."""
+    jmodel, params, model = pair(arch)
+    sp = (np.random.default_rng(seed).normal(size=(P, model.cfg.d_model)) * 0.1).astype(np.float32)
+    ref = jax_make_prefill_step(jmodel, ce_chunk=ce_chunk)(params, {"soft_prompt": jnp.asarray(sp)},
+                                                           jbatch(b))
+    per = make_prefill_step(model, ce_chunk=ce_chunk)({"soft_prompt": torch.from_numpy(sp)},
+                                                      tbatch(b))
+    assert per.shape == (b["tokens"].shape[0],)
     np.testing.assert_allclose(per.numpy(), np.asarray(ref), rtol=LOSS_TOL, atol=LOSS_TOL)
+
+
+def test_make_prefill_step_matches_jax():
+    prefill_parity("gpt2-base", 9, batches(1, 60, B=3)[0], ce_chunk=7)
+
+
+@pytest.mark.parametrize("arch", ["internlm2-20b", "phi3-medium-14b", "command-r-plus-104b"])
+def test_make_prefill_step_matches_jax_on_the_dense_family(arch):
+    """prefill_32k's step on the smoke cuts of the last three dense configs
+    (command-r-plus-104b's parallel LayerNorm block and tied head among
+    them): 40 tokens a row after the prompt, in chunks of 16 with a ragged
+    last one, every token masked in or out at random."""
+    prefill_parity(arch, 10, batches(1, 61, B=2, S=40)[0], ce_chunk=16)
 
 
 def test_model_for_shape_matches_jax():
@@ -404,7 +420,8 @@ def test_model_for_shape_matches_jax():
     from repro_torch.configs import get_config
     from repro_torch.launch import model_for_shape, supports_shape
     from repro.configs import get_config as jget
-    for arch in ("gpt2-base", "qwen2-7b", "rwkv6-7b", "deepseek-v2-236b", "vicuna-7b"):
+    for arch in ("gpt2-base", "qwen2-7b", "rwkv6-7b", "deepseek-v2-236b", "vicuna-7b",
+                 "internlm2-20b", "phi3-medium-14b", "command-r-plus-104b"):
         for name, shape in INPUT_SHAPES.items():
             ours = model_for_shape(get_config(arch), shape)
             ref = jmfs(jget(arch), JSHAPES[name])
