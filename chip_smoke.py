@@ -6,8 +6,7 @@
 Phases, in order; any failure ends the run with a non-zero exit:
 
 1. Build the CUDA kernels from src/repro_torch/kernels/csrc for sm_90a (one
-   nvcc per source, in parallel, beside flash_attention's one-term P·V
-   variant that phase 2 compares), print each kernel's registers and spills
+   nvcc per source, in parallel), print each kernel's registers and spills
    as ptxas reports them and mla_decode's dynamic shared memory, and print
    the card's name and power limit.
 2. Hold each kernel against its plain PyTorch version on the card, in bf16
@@ -34,12 +33,16 @@ Phases, in order; any failure ends the run with a non-zero exit:
    score_ce at (D, V) = (6144, 92544), (5120, 100352) and (12288, 256000),
    T = 272 and 7952; flash_attention at GQA groups 4, 6 and 12 (hd 128),
    and at B = 1, H = 28, Hkv = 4, S = L = 32768 held in slices of 1024
-   queries. bf16 flash_attention is held to flash_decode's bound (rtol 1e-2,
-   atol 1e-3 x max |plain|); each case also prints the gap of the kernel's
-   one-term P·V variant (P rounded to bf16, the kernel before P was split
-   into P_hi + P_lo) and of the plain version with P rounded to bf16, and
-   the split's cost is timed at S = 513 hd 64, S = 4112 hd 128 and S = 513
-   hd 112 (2s).
+   queries. seamless-m4t-medium's: score_ce at D = 1024, V = 256206 (a
+   ragged last vocabulary tile), T = 272 and 7952; flash_attention not
+   causal over 1024 frames and at 33, 513 and 70 queries against 1024 and
+   1000 rows. bf16 flash_attention is held to flash_decode's bound (rtol
+   1e-2, atol 1e-3 x max |plain|). (2t) Timed apart: flash_attention at
+   the GQA groups 6, 4 and 12 at B = 16, S = 33 and 513, and score_ce at
+   one 2048-position chunk of prefill_32k (D = 3584, V = 152064), each
+   beside its plain version, the library call and the bound.
+   tools/flash_attention_variants.py compares the kernel with its one-term
+   P·V variant (one bf16 P, the kernel before P was split).
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
@@ -200,6 +203,29 @@ Phases, in order; any failure ends the run with a non-zero exit:
    q_offset, 64 stale rows before the window) on the same K/V in position
    order, one step profiled.
 
+14. seamless-m4t-medium (after phase 13) at full width and depth, bf16,
+   weights from --seed: 12 encoder + 12 decoder layers with cross
+   attention, d = 1024, 16 heads of 64, V = 256206 tied, an audio frontend
+   stub of 1024 frames x 1024, 0.62 B parameters. (a) flash_attention not
+   causal (the encoder, S = L = 1024; the cross attention, S = 33 and 513
+   against 1024), flash_decode (decode_32k at B = 16, and against the 1024
+   cross rows) and score_ce (T = 272 and 7952) held against their plain
+   versions and timed beside them, the library call and the bound; (b) a
+   bank of 48 candidates in 12 clusters (features on the reference's zero
+   frontend) and two select_score lookups (33 and 513 positions), each
+   evaluation's batch carrying a seeded frontend: flash_attention launched
+   36 times an evaluation (encoder, self and cross), no plain version run,
+   each distinct call held against the plain version at its strides, one
+   evaluation profiled; (c) 8 serve steps at decode_32k with the batch cut
+   from 128 to 16, the self-attention cache seeded and the cross cache
+   filled from encode + encode_cross_kv on a seeded frontend, flash_decode
+   launched 24 times a step (self and cross) and the cross cache left
+   unwritten; one step profiled; one step on the zero cross cache the
+   reference leaves; teacher-forced decode of 32 tokens against the
+   forward, held layer by layer and end to end; a 2 + 2-layer f32 cut, card
+   against CPU, on the Eqn-1 loss with a seeded frontend and 4 decode
+   steps.
+
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
 (the others under "shapes") and its launches in all and by path and shape;
@@ -211,6 +237,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import json
 import os
@@ -391,16 +418,12 @@ def check_close(name: str, out: torch.Tensor, ref: torch.Tensor, tol: float,
 
 # -- phase 1 --------------------------------------------------------------------
 
-def phase_build():
-    """Returns the card's name and power limit, and the one-term P·V variant
-    of flash_attention's library (one_term_p_source), built beside the
-    kernels."""
+def phase_build() -> str:
+    """Returns the card's name and power limit."""
     from repro_torch.kernels import _build
 
     t0 = time.perf_counter()
-    one_term = start_one_term_build()
     libs = _build.build()
-    one_term = finish_one_term_build(*one_term)
     print(f"[1] built {sorted(libs)} for sm_90a in {time.perf_counter() - t0:.1f} s")
     for name, so in sorted(libs.items()):
         log = so.with_suffix(".log").read_text() if so.with_suffix(".log").exists() else ""
@@ -415,97 +438,7 @@ def phase_build():
           f"f32 {mla.mla_decode_smem_bytes(0)} B a block")
     card = gpu_line()
     print(card)
-    return card, one_term
-
-
-# -- flash_attention's P·V with one bf16 term, for phase 2's before and after ------
-
-# What csrc/flash_attention.cu ran before P was split into P_hi + P_lo: one
-# bf16 P as the A operand of each P·V product. one_term_p_source makes it from
-# the committed source (each substitution must apply exactly once, so an edit
-# of the source that breaks one fails the build loudly); phase 2 prints its
-# gaps beside the kernel's and times the two. It is never on a main path.
-ONE_TERM_SUBS = [
-    ("""      uint32_t ph[4], pl[4];
-      split_bf16(sa[2 * kk][0], sa[2 * kk][1], ph[0], pl[0]);
-      split_bf16(sa[2 * kk][2], sa[2 * kk][3], ph[1], pl[1]);
-      split_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1], ph[2], pl[2]);
-      split_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3], ph[3], pl[3]);
-""", """      const uint32_t ph[4] = {pack_bf16(sa[2 * kk][0], sa[2 * kk][1]),
-                              pack_bf16(sa[2 * kk][2], sa[2 * kk][3]),
-                              pack_bf16(sa[2 * kk + 1][0], sa[2 * kk + 1][1]),
-                              pack_bf16(sa[2 * kk + 1][2], sa[2 * kk + 1][3])};
-"""),
-    ("""        mma_bf16(oacc[n], pl, bf[0], bf[1]);
-        mma_bf16(oacc[n + 1], pl, bf[2], bf[3]);
-""", ""),
-]
-
-
-def one_term_p_source(src: str) -> str:
-    for old, new in ONE_TERM_SUBS:
-        if src.count(old) != 1:
-            raise AssertionError(f"the one-term P·V variant no longer applies to "
-                                 f"flash_attention.cu: {old.strip()[:60]!r}")
-        src = src.replace(old, new)
-    return src
-
-
-def start_one_term_build():
-    """Starts nvcc on the one-term variant, with the kernels' flags, into
-    build/flash_attention_one_term/."""
-    from repro_torch.kernels import _build
-
-    out = ROOT / "build" / "flash_attention_one_term"
-    out.mkdir(parents=True, exist_ok=True)
-    cu, so = out / "flash_attention_one_term.cu", out / "flash_attention_one_term.so"
-    cu.write_text(one_term_p_source((_build.CSRC / "flash_attention.cu").read_text()))
-    cmd = [_build._nvcc(), *_build.NVCC_FLAGS, "-I", str(_build.CSRC), "-o", str(so), str(cu)]
-    return subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
-                            text=True), so
-
-
-def finish_one_term_build(proc, so):
-    import ctypes
-
-    out, _ = proc.communicate()
-    if proc.returncode:
-        raise RuntimeError(f"nvcc of the one-term flash_attention variant failed:\n{out}")
-    return ctypes.CDLL(str(so))
-
-
-@contextlib.contextmanager
-def fa_library(lib):
-    """flash_attention's wrapper launches from ``lib`` inside the block."""
-    from repro_torch.kernels import _build
-
-    _build.load("flash_attention")
-    saved, _build._LIBS["flash_attention"] = _build._LIBS["flash_attention"], lib
-    try:
-        yield
-    finally:
-        _build._LIBS["flash_attention"] = saved
-
-
-def flash_attention_p_bf16(q, k, v, **kw):
-    """flash_attention_plain with P rounded to bf16 before P·V, as one bf16
-    A operand rounds it: exp(s - row max) rounded, P·V in f32, divided by the
-    f32 row sum."""
-    from repro_torch.kernels.flash_attention import _scores
-
-    B, H, S, hd = q.shape
-    kw = {"causal": True, "window": 0, "q_offset": 0, "kv_len": None, **kw}
-    scores, live = _scores(q, k, **kw)
-    p = torch.exp(scores - scores.amax(dim=-1, keepdim=True)) * live
-    pv = torch.einsum("bhgsl,bhld->bhgsd", p.to(torch.bfloat16).float(), v.float())
-    return (pv / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)).reshape(B, H, S, hd).to(q.dtype)
-
-
-def gap(out: torch.Tensor, ref: torch.Tensor, rtol: float, atol: float):
-    """(max abs error, the largest share of its bound atol + rtol·|ref| that
-    an element's error takes: at most 1 where the bound holds)."""
-    err = (out.float() - ref.float()).abs()
-    return err.max().item(), (err / (atol + rtol * ref.float().abs())).max().item()
+    return card
 
 
 def fa_bf16_bound(ref: torch.Tensor):
@@ -515,26 +448,23 @@ def fa_bf16_bound(ref: torch.Tensor):
 
 
 SLICE_ROWS = 1024
+# The plain version's f32 scores of one hold_recorded chunk: at most 2 GiB.
+PLAIN_SCORE_BYTES = 1 << 31
 
 
-def sliced_attention_check(label: str, q, k, v, one_term=None, out=None) -> dict:
+def sliced_attention_check(label: str, q, k, v, out=None) -> dict:
     """flash_attention, causal at S = L, against its plain version over
     slices of SLICE_ROWS queries (the plain version's (S, L) scores of 32768
     positions do not fit), each slice at its q_offset against the keys up to
     its last row; bf16 at each slice's fa_bf16_bound, f32 at TOL. ``out`` is
     the kernel's output on q, k and v where a main path already made it.
-    Returns the largest error, the time of the plain slices together, and
-    with ``one_term`` that variant's largest error (printed, not held)."""
+    Returns the largest error and the time of the plain slices together."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
     if out is None:
         out = flash_attention(q, k, v, causal=True)
-    before = None
-    if one_term is not None:
-        with fa_library(one_term):
-            before = flash_attention(q, k, v, causal=True)
     torch.cuda.synchronize()
-    S, worst, plain_s, worst_before = q.shape[2], 0.0, 0.0, 0.0
+    S, worst, plain_s = q.shape[2], 0.0, 0.0
     for s0 in range(0, S, SLICE_ROWS):
         s1 = min(S, s0 + SLICE_ROWS)
         t = time.perf_counter()
@@ -546,17 +476,10 @@ def sliced_attention_check(label: str, q, k, v, one_term=None, out=None) -> dict
                       else (TOL[q.dtype], TOL[q.dtype]))
         worst = max(worst, check_close(f"{label} rows {s0}..{s1 - 1}", out[:, :, s0:s1], ref,
                                        rtol, atol))
-        if before is not None:
-            worst_before = max(worst_before, gap(before[:, :, s0:s1], ref, rtol, atol)[1])
         del ref
-    extra = ("" if before is None else
-             f"; before the split (one bf16 P) {worst_before:.2f} of the bound at its worst")
     print(f"{label}: {-(-S // SLICE_ROWS)} slices of {SLICE_ROWS} queries, max abs err "
-          f"{worst:.3e}{extra}; plain slices {plain_s * 1e3:.1f} ms of host wall")
-    res = {"err": worst, "plain_ms": plain_s * 1e3}
-    if before is not None:
-        res["one_term"] = worst_before
-    return res
+          f"{worst:.3e}; plain slices {plain_s * 1e3:.1f} ms of host wall")
+    return {"err": worst, "plain_ms": plain_s * 1e3}
 
 
 # -- phase 2 --------------------------------------------------------------------
@@ -570,6 +493,7 @@ SCORE_CE_CASES = [  # T, D, V of phase 2's score_ce checks
     (272, 6144, 92544), (16 * 497, 6144, 92544),    # internlm2-20b
     (272, 5120, 100352), (16 * 497, 5120, 100352),  # phi3-medium-14b
     (272, 12288, 256000), (16 * 497, 12288, 256000),  # command-r-plus-104b
+    (272, 1024, 256206), (16 * 497, 1024, 256206),    # seamless-m4t-medium: V % 128 = 78
 ]
 # flash_attention's checks: B, H, Hkv, S, L, hd, kwargs (causal unless they
 # say otherwise). Then GQA groups 4, 6 and 12 at hd 128 (phi3-medium-14b,
@@ -607,6 +531,12 @@ FLASH_CASES = [
     (16, 48, 8, 33, 33, 128, {}), (16, 48, 8, 513, 513, 128, {}),
     (16, 96, 8, 33, 33, 128, {}), (16, 96, 8, 513, 513, 128, {}),
     (2, 96, 8, 65, 200, 128, {"q_offset": 135, "window": 70}),  # G = 12, window edge
+    # seamless-m4t-medium (hd 64, MHA 16 heads), not causal: its encoder over
+    # 1024 frames, and the cross attention of 33 and 513 positions against them
+    (2, 16, 16, 1024, 1024, 64, {"causal": False}),
+    (2, 16, 16, 33, 1024, 64, {"causal": False}),
+    (2, 16, 16, 513, 1024, 64, {"causal": False}),
+    (2, 16, 8, 70, 1000, 64, {"causal": False}),             # ragged tiles, G = 2
 ]
 # rwkv6_wkv's checks: B, H, T, decay, start state. The bf16 kernel's
 # sub-chunk is C = 16 tokens: T = 1, C - 1, C, C + 1 and 2C + 1. Decay
@@ -621,14 +551,17 @@ WKV_CASES = [
     (4, 8, 513, "steep", True),
 ]
 
-# the split's cost: B, H, S = L, hd (causal, MHA): gpt2-base's lookup at 513
-# positions, vicuna-7b's train_4k, zamba2-7b's lookup at 513
-SPLIT_COST_SHAPES = [(16, 12, 513, 64), (1, 32, 4112, 128), (16, 32, 513, 112)]
+# timed apart (2t): flash_attention at the last dense configs' GQA groups
+# (B, H, Hkv, S, hd; causal at S = L: their lookups' evaluations), and
+# score_ce at one 2048-position chunk of qwen2-7b's prefill_32k step
+GQA_TIMED = [(16, 48, 8, 33, 128), (16, 48, 8, 513, 128),    # internlm2-20b, G = 6
+             (16, 40, 10, 33, 128), (16, 40, 10, 513, 128),  # phi3-medium-14b, G = 4
+             (16, 96, 8, 33, 128), (16, 96, 8, 513, 128)]    # command-r-plus-104b, G = 12
+PREFILL_CHUNK_SCORE = (2048, 3584, 152064)                    # T, D, V
 
 
-def phase_kernels(dev: torch.device, seed: int, one_term) -> tuple:
-    """Returns each kernel's largest error, and flash_attention's gaps
-    before and after the split of P with the split's cost."""
+def phase_kernels(dev: torch.device, seed: int) -> tuple:
+    """Returns each kernel's largest error, and the rows timed in 2t."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_plain
@@ -636,7 +569,6 @@ def phase_kernels(dev: torch.device, seed: int, one_term) -> tuple:
 
     gen = torch.Generator(device=dev).manual_seed(seed)
     worst = {"score_ce": 0.0, "flash_attention": 0.0, "flash_decode": 0.0, "rwkv6_wkv": 0.0}
-    split = {"gaps": [], "cost": []}
     for dtype in (torch.bfloat16, torch.float32):
         for T, D, V in SCORE_CE_CASES:
             h = torch.randn(T, D, generator=gen, device=dev).to(dtype)
@@ -660,32 +592,19 @@ def phase_kernels(dev: torch.device, seed: int, one_term) -> tuple:
             torch.cuda.synchronize()
             ref = flash_attention_plain(q, k, v, **kw)
             name = f"flash_attention B={B} H={H} Hkv={Hkv} S={S} L={L} hd={hd} {kw} {dtype}"
-            rtol, atol, extra = TOL[dtype], TOL[dtype], ""
-            if dtype == torch.bfloat16:
-                rtol, atol = fa_bf16_bound(ref)
-                with fa_library(one_term):
-                    before = gap(flash_attention(q, k, v, **kw), ref, rtol, atol)
-                rounded = gap(flash_attention_p_bf16(q, k, v, **kw), ref, rtol, atol)
-                after = gap(out, ref, rtol, atol)
-                split["gaps"].append({"case": name, "one_term": before, "p_bf16": rounded,
-                                      "split": after})
-                extra = (f", {after[1]:.2f} of the bound; before the split (one bf16 P) "
-                         f"{before[0]:.3e}, {before[1]:.2f} of the bound; plain with P rounded "
-                         f"to bf16 {rounded[0]:.3e}, {rounded[1]:.2f} of the bound")
+            rtol, atol = (fa_bf16_bound(ref) if dtype == torch.bfloat16
+                          else (TOL[dtype], TOL[dtype]))
             err = check_close(name, out, ref, rtol, atol)
             worst["flash_attention"] = max(worst["flash_attention"], err)
-            print(f"[2] {name}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e}){extra}")
+            print(f"[2] {name}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e})")
+            del q, k, v, out, ref
         # qwen2-7b's heads at prefill_32k's length, held in slices
         q = torch.randn(1, 28, 32768, 128, generator=gen, device=dev).to(dtype)
         k, v = (torch.randn(1, 4, 32768, 128, generator=gen, device=dev).to(dtype)
                 for _ in range(2))
         res = sliced_attention_check(f"[2] flash_attention B=1 H=28 Hkv=4 S=L=32768 hd=128 "
-                                     f"causal {dtype}", q, k, v,
-                                     one_term if dtype == torch.bfloat16 else None)
+                                     f"causal {dtype}", q, k, v)
         worst["flash_attention"] = max(worst["flash_attention"], res["err"])
-        if "one_term" in res:
-            split["gaps"].append({"case": "B=1 H=28 Hkv=4 S=L=32768 hd=128 causal, sliced",
-                                  "one_term_share": res["one_term"], "split": res["err"]})
         del q, k, v
         decode_cases = [  # B, H, Hkv, L, hd, kwargs
             (16, 28, 4, 32768, 128, {"kv_len": 32768}),              # qwen2-7b serve shape
@@ -773,24 +692,14 @@ def phase_kernels(dev: torch.device, seed: int, one_term) -> tuple:
               f"{dtype} inputs: max abs err (y and state) {err:.3e} (rtol {WKV_TOL[dtype]}, "
               f"atol {WKV_TOL[dtype]:.2e})")
 
-    # what the split costs: the kernel and the one-term variant on the same
-    # inputs, timed in the order kernel, variant, kernel, variant
-    for B, H, S, hd in SPLIT_COST_SHAPES:
-        q, k, v = (torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
-                   for _ in range(3))
-        times = {"split": [], "one_term": []}
-        for name in ("split", "one_term", "split", "one_term"):
-            with fa_library(one_term) if name == "one_term" else contextlib.nullcontext():
-                times[name].append(time_ms(lambda: flash_attention(q, k, v, causal=True)))
-        row = {"shape": f"B={B} H={H} S=L={S} hd={hd} causal bf16",
-               **{name: min(t) for name, t in times.items()}}
-        split["cost"].append(row)
-        print(f"[2s] flash_attention {row['shape']}: P split (the kernel) "
-              f"{times['split'][0]:.4f} / {times['split'][1]:.4f} ms, one bf16 P "
-              f"{times['one_term'][0]:.4f} / {times['one_term'][1]:.4f} ms: the split costs "
-              f"{row['split'] / row['one_term'] - 1:+.1%}")
-        del q, k, v
-    return worst, split
+    # 2t: timed apart at shapes that the main paths run and no other phase times
+    rows = {"flash_attention": [attention_row("[2t]", B, H, Hkv, S, hd, gen, dev, trace=False)
+                                for B, H, Hkv, S, hd in GQA_TIMED]}
+    T, D, V = PREFILL_CHUNK_SCORE
+    emb = (torch.randn(V, D, generator=gen, device=dev) * 0.05).bfloat16()
+    rows["score_ce"] = score_ce_rows("[2t]", "qwen2-7b prefill_32k chunk", emb, (T,), gen)
+    del emb
+    return worst, rows
 
 
 def eval_shape(score_fn, positions: int) -> str:
@@ -1477,8 +1386,12 @@ def phase_telemetry(svc, results, routed, card: str) -> None:
 def cut_state(model, layers: int):
     """The config and the weights, copied to the CPU, of the first ``layers``
     layers of ``model`` (in layer order across its segments) with its
-    embeddings and final norm, in f32."""
-    cut = model.cfg.with_overrides(num_layers=layers, dtype="float32", param_dtype="float32")
+    embeddings and final norm, in f32; an encoder-decoder's encoder is cut
+    to its first ``layers`` layers too."""
+    over = dict(num_layers=layers, dtype="float32", param_dtype="float32")
+    if model.cfg.encdec is not None:
+        over["encdec"] = dataclasses.replace(model.cfg.encdec, num_encoder_layers=layers)
+    cut = model.cfg.with_overrides(**over)
     kept, i = set(), 0
     for seg in model.segments:
         for j in range(seg.count):
@@ -1486,8 +1399,13 @@ def cut_state(model, layers: int):
                 kept.add(f"{seg.name}.{j}")
             i += 1
     names = {seg.name for seg in model.segments}
-    state = {k: v.cpu() for k, v in model.state_dict().items()
-             if k.split(".")[0] not in names or ".".join(k.split(".")[:2]) in kept}
+
+    def keep(key: str) -> bool:
+        p = key.split(".")
+        if p[:2] == ["encoder", "blocks"]:
+            return int(p[2]) < layers
+        return p[0] not in names or ".".join(p[:2]) in kept
+    state = {k: v.cpu() for k, v in model.state_dict().items() if keep(k)}
     return cut, state
 
 
@@ -2446,45 +2364,62 @@ HYBRID_SERVE_BATCH = 8
 HYBRID_CUT_LAYERS = 7          # 6 + 1 Mamba2 layers: one shared-attention application
 
 
-def attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, dev) -> dict:
-    """flash_attention in bf16, causal at S = L: the kernel, its plain
-    version, one SDPA call and the bound (the live pairs' operations, q, k,
-    v and the output moved once)."""
+def attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, dev, *,
+                  L: int | None = None, causal: bool = True, trace: bool = True) -> dict:
+    """flash_attention in bf16, S queries against L keys (S = L unless
+    given; causal only at S = L), held against its plain version at
+    fa_bf16_bound, then timed: the kernel, its plain version, one SDPA call
+    and the bound (the live pairs' operations, q, k, v and the output moved
+    once); with ``trace`` also what it launches. Returns the row, its error
+    under "err"."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
 
+    L = S if L is None else L
     q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, Hkv, S, hd, generator=gen, device=dev).to(torch.bfloat16)
+    k, v = (torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(torch.bfloat16)
             for _ in range(2))
-    pairs = S * (S + 1) // 2
+    shape = (f"B={B} H={H} Hkv={Hkv} {f'S=L={S}' if S == L else f'S={S} L={L}'} hd={hd} "
+             f"{'causal' if causal else 'not causal'} bf16")
+    call = lambda: flash_attention(q, k, v, causal=causal)   # noqa: E731
+    out = call()
+    torch.cuda.synchronize()
+    ref = flash_attention_plain(q, k, v, causal=causal)
+    rtol, atol = fa_bf16_bound(ref)
+    err = check_close(f"{label} flash_attention {shape}", out, ref, rtol, atol)
+    del out, ref
+    pairs = S * (S + 1) // 2 if causal else S * L
     b_ms, b_by = bound(4.0 * B * H * pairs * hd,
-                       (2 * B * H + 2 * B * Hkv) * S * hd * q.element_size(), PEAK_BF16_FLOPS)
-    row = {"shape": f"B={B} H={H} Hkv={Hkv} S=L={S} hd={hd} causal bf16",
-           "ms": time_ms(lambda: flash_attention(q, k, v, causal=True)),
-           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=True), reps=5),
+                       (2 * B * H * S + 2 * B * Hkv * L) * hd * q.element_size(), PEAK_BF16_FLOPS)
+    row = {"shape": shape, "ms": time_ms(call), "err": err,
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=causal), reps=5),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True, enable_gqa=H != Hkv)),
+               q, k, v, is_causal=causal, enable_gqa=H != Hkv)),
            "bound_ms": b_ms, "bound_by": b_by}
-    print(f"{label} flash_attention {row['shape']}: kernel {row['ms']:.4f} ms, plain "
-          f"{row['plain_ms']:.4f} ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
-          f"{b_ms:.4f} ms ({b_by})")
-    kernel_launches(f"{label} flash_attention S={S} hd={hd}",
-                    lambda: flash_attention(q, k, v, causal=True))
+    print(f"{label} flash_attention {shape}: max abs err {err:.3e} (rtol {rtol}, atol "
+          f"{atol:.2e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
+          f"(SDPA) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+    if trace:
+        kernel_launches(f"{label} flash_attention S={S} hd={hd}", call)
     return row
 
 
-def bank_and_lookups(label: str, model, requests, seed: int) -> dict:
-    """Phases 11a and 12: a bank of 24 tasks x 2 variants = 48 candidates in
-    12 clusters on ``model`` (bf16, on the card), then one lookup for each
-    task of ``requests``, with flash_attention and score_ce counted by
-    request shape; then one more evaluation of the first request, whose
-    flash_attention launches are ``per_eval``. Fails if either kernel was
-    never launched or a plain version ran."""
+def bank_and_lookups(label: str, model, requests, seed: int, score_fn_for=None) -> dict:
+    """Phases 11a, 12 and 14b: a bank of 24 tasks x 2 variants = 48
+    candidates in 12 clusters on ``model`` (bf16, on the card), then one
+    two-layer lookup (``select_score``) for each task of ``requests``, its
+    scorer ``score_fn_for(task, tune_cfg)`` (``make_score_fn`` by default),
+    with flash_attention and score_ce counted by request shape; then one
+    more evaluation of the first request, whose flash_attention launches
+    are ``per_eval``. Fails if either kernel was never launched or a plain
+    version ran."""
     from repro_torch.config import TuneConfig
-    from repro_torch.core import build_bank, make_score_fn
+    from repro_torch.core import build_bank, make_score_fn, select_score
     from repro_torch.data import make_tasks
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.score_ce import score_ce
 
+    if score_fn_for is None:
+        score_fn_for = lambda task, tc: make_score_fn(model, task, tc)   # noqa: E731
     tune_cfg = TuneConfig(prompt_len=16)
     rng = np.random.default_rng(seed)
     d = model.cfg.d_model
@@ -2506,10 +2441,10 @@ def bank_and_lookups(label: str, model, requests, seed: int) -> dict:
             raise AssertionError(f"{label} the bank does not hold 48 candidates in 12 clusters")
         results = []
         for task in requests:
-            score_fn = make_score_fn(model, task, tune_cfg)
+            score_fn = score_fn_for(task, tune_cfg)
             positions = tune_cfg.prompt_len + score_fn.eval_batch["tokens"].shape[1]
             with counted(kernels, by_shape, eval_shape(score_fn, positions)):
-                res = bank.lookup(score_fn)
+                res = select_score(bank, score_fn)
             if not np.isfinite(res.score) or res.evaluations < len(bank.medoid_ids):
                 raise AssertionError(f"{label} lookup for {task.task_id} gave {res}")
             print(f"{label} request {task.task_id} ({positions} positions): "
@@ -3013,7 +2948,8 @@ def hold_recorded(label: str, kept: dict) -> float:
     on the main path, against flash_attention_plain on the same inputs at
     their strides: bf16 at fa_bf16_bound, f32 at TOL. A causal S = L call
     longer than 4 SLICE_ROWS is held batch row by batch row in slices
-    (sliced_attention_check). Returns the largest error."""
+    (sliced_attention_check); any other in chunks of batch rows whose plain
+    f32 scores take at most PLAIN_SCORE_BYTES. Returns the largest error."""
     from repro_torch.kernels.flash_attention import flash_attention_plain
 
     worst = 0.0
@@ -3029,14 +2965,19 @@ def hold_recorded(label: str, kept: dict) -> float:
                                              v[b:b + 1], out=out[b:b + 1])
                 worst = max(worst, res["err"])
             continue
-        ref = flash_attention_plain(q, k, v, **kw)
-        rtol, atol = (fa_bf16_bound(ref) if q.dtype == torch.bfloat16
-                      else (TOL[q.dtype], TOL[q.dtype]))
-        err = check_close(name, out, ref, rtol, atol)
+        rows, err = max(1, PLAIN_SCORE_BYTES // (4 * q.shape[1] * S * L)), 0.0
+        for b0 in range(0, q.shape[0], rows):
+            sl = slice(b0, b0 + rows)
+            ref = flash_attention_plain(q[sl], k[sl], v[sl], **kw)
+            rtol, atol = (fa_bf16_bound(ref) if q.dtype == torch.bfloat16
+                          else (TOL[q.dtype], TOL[q.dtype]))
+            err = max(err, check_close(f"{name}, batch rows {b0}..", out[sl], ref, rtol, atol))
+            del ref
         worst = max(worst, err)
-        print(f"{name}: the main path's output against the plain version, max abs err "
-              f"{err:.3e} (rtol {rtol}, atol {atol:.2e})")
-        del ref
+        chunks = -(-q.shape[0] // rows)
+        print(f"{name}: the main path's output against the plain version"
+              f"{f' in {chunks} batch chunks' if chunks > 1 else ''}, max abs err {err:.3e} "
+              f"(rtol {rtol}, atol {atol:.2e} in the last)")
     return worst
 
 
@@ -3271,6 +3212,299 @@ def phase_long_shapes(dev: torch.device, seed: int) -> dict:
     return {"prefill": step, "fa_row": fa_row,
             "long": {"step_ms": med * 1e3, "tokens_per_s": 1 / med, "profile": prof,
                      "masked_gap": max(gaps), "masked_terms": worst_terms}}
+
+
+# -- phase 14 -------------------------------------------------------------------
+
+# seamless-m4t-medium's decode_32k batch of 128 cut to 16: 12 decoder layers
+# x 2 x 32768 x 16 x 64 x 2 B = 25.8 GB of self-attention K/V, and 0.8 GB of
+# cross keys and values over its 1024 frames.
+ENCDEC_SERVE_BATCH = 16
+ENCDEC_CUT_LAYERS = 2          # 2 encoder + 2 decoder layers
+
+
+def encdec_score_fn(model, task, tune_cfg, gen):
+    """make_score_fn's scorer with a frontend drawn from ``gen`` in its eval
+    batch (rows x frames x embed_dim, f32): an encoder-decoder's Eqn-1 score
+    needs one, and the task loader's batches carry none."""
+    from repro_torch.core import ScoreContext, make_score_fn
+
+    base = make_score_fn(model, task, tune_cfg)
+    fc = model.cfg.frontend
+    fe = torch.randn(base.eval_batch["tokens"].shape[0], fc.num_embeddings, fc.embed_dim,
+                     generator=gen, device=model.device)
+    return ScoreContext(base.tuner, {**base.eval_batch, "frontend": fe})
+
+
+def fill_cross_kv(model, cache: dict, frontend: torch.Tensor) -> None:
+    """Writes each decoder layer's cross keys and values, from ``encode``
+    and ``encode_cross_kv`` on ``frontend``, into ``cache["cross_kv"]``."""
+    from repro_torch.models.attention import encode_cross_kv
+
+    with torch.no_grad():
+        enc = model.encode(frontend)
+        for i, block in enumerate(model.decoder):
+            k, v = encode_cross_kv(model.cfg, block.cross, enc)
+            cache["cross_kv"]["k"][i].copy_(k)
+            cache["cross_kv"]["v"][i].copy_(v)
+
+
+def encdec_kernel_rows(cfg, gen, dev) -> dict:
+    """14a: each kernel at seamless-m4t-medium's shapes in bf16, held against
+    its plain version and timed beside it, one library call and the bound:
+    flash_attention not causal over the encoder's 1024 frames (S = L) and for
+    the cross attention of 33 and 513 positions against them; flash_decode at
+    decode_32k (B = 16) and against the 1024 cross rows; score_ce at V =
+    256206, T = 272 and 7952. Returns the rows and the largest errors."""
+    from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
+
+    B, H, Hkv, hd = 16, cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim()
+    frames, bf16 = cfg.frontend.num_embeddings, torch.bfloat16
+    # the encoder (S = L) and the cross attention of 33 and 513 positions
+    rows = {"flash_attention": [attention_row("[14a]", B, H, Hkv, S, hd, gen, dev, L=frames,
+                                              causal=False, trace=False)
+                                for S in (frames, 33, 513)], "flash_decode": []}
+    worst = {"flash_attention": max(r["err"] for r in rows["flash_attention"]),
+             "flash_decode": 0.0}
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for L, live, what in ((32768, 32767, "decode_32k self-attention"),
+                          (frames, frames, "cross attention, every row live")):
+        q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
+        k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=dev).to(bf16).transpose(1, 2)
+                for _ in range(2))
+        out = flash_decode(q, k, v, kv_len=live)
+        torch.cuda.synchronize()
+        ref = flash_decode_plain(q, k, v, kv_len=live)
+        top = ref.float().abs().max().item()
+        shape = (f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} kv_len={live} ({what}) bf16, "
+                 f"{auto_splits(B, Hkv, H // Hkv, live, sms)} splits")
+        err = check_close(f"[14a] flash_decode {shape}", out, ref, DECODE_BF16_RTOL,
+                          DECODE_BF16_ATOL * top)
+        worst["flash_decode"] = max(worst["flash_decode"], err)
+        b_ms, b_by = decode_bound(B, H, Hkv, hd, live, q.element_size())
+        row = {"shape": shape, "ms": time_ms(lambda: flash_decode(q, k, v, kv_len=live)),
+               "plain_ms": time_ms(lambda: flash_decode_plain(q, k, v, kv_len=live), reps=5),
+               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+                   q[:, :, None], k[:, :, :live], v[:, :, :live], enable_gqa=H != Hkv)),
+               "bound_ms": b_ms, "bound_by": b_by}
+        rows["flash_decode"].append(row)
+        print(f"[14a] flash_decode {shape}: max abs err {err:.3e} (rtol {DECODE_BF16_RTOL}, atol "
+              f"{DECODE_BF16_ATOL * top:.2e}); kernel {row['ms']:.4f} ms, plain "
+              f"{row['plain_ms']:.4f} ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
+              f"{b_ms:.4f} ms ({b_by})")
+        del q, k, v, out, ref
+    return {"rows": rows, "worst": worst}
+
+
+def encdec_depth_witness(model, tokens: torch.Tensor, frontend: torch.Tensor) -> dict:
+    """14c: teacher-forced decode against the forward, the cross cache made
+    from ``encode`` + ``encode_cross_kv`` on the forward's own frontend (at
+    full width the encoder's 1024 frames fill all of its rows). Held layer
+    by layer: each decoder layer's one-token steps, fed the forward's input
+    to that layer and that layer's cross keys and values, against its
+    forward output, as ||dec - fwd|| / ||increment|| (LAYER_DECODE_BF16_TOL
+    in bf16); and end to end, the model's decode_step against its forward's
+    logits (DECODE_REL_TOL)."""
+    from repro_torch.models.attention import encode_cross_kv
+    from repro_torch.models.transformer import block_cache, block_decode
+
+    cfg, (B, S) = model.cfg, tokens.shape
+    gaps = []
+    with torch.no_grad():
+        enc = model.encode(frontend)
+        x, positions = model.embed_inputs(tokens)
+        for block in model.decoder:
+            y = block(x, positions, enc)
+            kv = encode_cross_kv(cfg, block.cross, enc)
+            cache = block_cache(cfg, "decoder_cross", B, S, model.device)
+            dec = torch.cat([block_decode(cfg, "decoder_cross", block, x[:, t:t + 1], cache, t, kv)
+                             for t in range(S)], dim=1)
+            gaps.append(((dec - y).float().norm() / (y - x).float().norm()).item())
+            x = y
+        full = model(tokens, None, frontend)
+        cache = model.init_cache(B, S)
+        fill_cross_kv(model, cache, frontend)
+        dec = torch.cat([model.decode_step(cache, tokens[:, t:t + 1], t)[0] for t in range(S)],
+                        dim=1)
+    rel = rel_gap(dec, full)
+    agree = (dec.argmax(-1) == full.argmax(-1)).float().mean().item()
+    tol = DECODE_REL_TOL[model.dtype]
+    print(f"[14c] teacher-forced decode of {S} tokens x {B} rows, {model.dtype}: per decoder layer "
+          f"||dec - fwd|| / ||increment|| max {max(gaps):.3e} (tol {LAYER_DECODE_BF16_TOL}), by "
+          f"layer {[f'{g:.2e}' for g in gaps]}; end to end ||dec - fwd|| / ||fwd|| = {rel:.3e} "
+          f"(tol {tol}), argmax agreement {agree:.3f}")
+    if not all(np.isfinite(gaps)) or not max(gaps) <= LAYER_DECODE_BF16_TOL:
+        raise AssertionError(f"[14c] decode disagrees with the forward within a layer: {gaps}")
+    if not torch.isfinite(dec).all() or not rel <= tol:
+        raise AssertionError(f"[14c] decode disagrees with the forward end to end: {rel}")
+    return {"layer_gap_max": max(gaps), "layer_gaps": gaps, "logits_gap": rel}
+
+
+def encdec_cut_vs_cpu(cut_and_state, dev, gen) -> float:
+    """14c: the 2 + 2-layer f32 cut, card against CPU, on the same seeded
+    frontend and tokens: the Eqn-1 loss with the frontend in the batch, and
+    4 decode steps with each side's cross cache from its own encoder."""
+    from repro_torch.train.objectives import lpt_loss
+
+    card, cpu = depth_cut(cut_and_state, dev)
+    fc, V = card.cfg.frontend, card.cfg.vocab_size
+    fe = torch.randn(2, fc.num_embeddings, fc.embed_dim, generator=gen, device=dev)
+    tokens = torch.randint(3, V, (2, 8), generator=gen, device=dev)
+    batch = {"tokens": tokens, "labels": torch.roll(tokens, -1, 1),
+             "mask": torch.ones(tokens.shape, device=dev), "frontend": fe}
+    prompt = 0.02 * torch.randn(16, card.cfg.d_model, generator=gen, device=dev)
+    with torch.no_grad():
+        lg = lpt_loss(card, prompt, batch)[1][0].item()
+        lc = lpt_loss(cpu, prompt.cpu(), {k: v.cpu() for k, v in batch.items()})[1][0].item()
+    rel = abs(lg - lc) / abs(lc)
+    print(f"[14c] {ENCDEC_CUT_LAYERS} + {ENCDEC_CUT_LAYERS}-layer f32 cut, Eqn-1 loss with a "
+          f"seeded frontend: cpu {lc:.6f}, card {lg:.6f} (rel {rel:.2e}, tol {F32_SCORE_RTOL})")
+    if not rel <= F32_SCORE_RTOL:
+        raise AssertionError("[14c] card f32 Eqn-1 loss disagrees with the CPU")
+    caches = [m.init_cache(2, 8) for m in (card, cpu)]
+    fill_cross_kv(card, caches[0], fe)
+    fill_cross_kv(cpu, caches[1], fe.cpu())
+    worst = 0.0
+    for t in range(4):
+        g, _ = card.decode_step(caches[0], tokens[:, t:t + 1], t)
+        c, _ = cpu.decode_step(caches[1], tokens[:, t:t + 1].cpu(), t)
+        worst = max(worst, check_close(f"[14c] decode step {t}, card f32 against CPU f32",
+                                       g.cpu(), c, F32_LOGIT_TOL))
+    print(f"[14c] the cut's 4 decode steps, card (kernels) against CPU (plain versions): max abs "
+          f"logit diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    del card, cpu
+    return max(rel, worst)
+
+
+def phase_encdec(dev: torch.device, seed: int) -> dict:
+    """seamless-m4t-medium (12 encoder + 12 decoder layers, cross attention,
+    an audio frontend stub of 1024 frames) at full width and depth, bf16,
+    weights from ``seed``."""
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_tasks
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode
+    from repro_torch.kernels.score_ce import score_ce
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("seamless-m4t-medium")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    H, Hkv, hd, V = cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size
+    frames, E = cfg.frontend.num_embeddings, cfg.frontend.embed_dim
+    print(f"[14] {cfg.name}: {cfg.encdec.num_encoder_layers} encoder + {cfg.num_layers} decoder "
+          f"layers, d={cfg.d_model}, H={H}, Hkv={Hkv}, hd={hd}, d_ff {cfg.d_ff}, V={V}, frontend "
+          f"{frames} frames x {E}, {cfg.norm}, {cfg.activation}, tied={cfg.tie_embeddings}, "
+          f"{cfg.dtype}; {n_params / 1e9:.3f} B parameters, "
+          f"{sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} GB; drawn "
+          f"from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed + 14)
+
+    # (a) the kernels at the slice's shapes
+    kern = encdec_kernel_rows(cfg, gen, dev)
+    score_rows = score_ce_rows("[14a]", cfg.name, model.embedding.detach(), (16 * 17, 16 * 497),
+                               gen)
+
+    # (b) Prompt Bank lookups, each evaluation's batch carrying a seeded frontend
+    tasks = make_tasks(vocab=32, partitions=2)
+    requests = [tasks[4], make_tasks(input_len=248, target_len=248)[9]]   # 33, 513 positions
+    kept: dict = {}
+    with recorded_attention([], kept):
+        look = bank_and_lookups("[14b]", model, requests, seed,
+                                score_fn_for=lambda task, tc: encdec_score_fn(model, task, tc, gen))
+    per_layer = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers   # encoder, self, cross
+    if look["per_eval"] != per_layer:
+        raise AssertionError(f"[14b] flash_attention launched {look['per_eval']} times an "
+                             f"evaluation, not {per_layer}")
+    _, res, score_fn = look["results"][0]
+    profile = profile_calls(f"[14b] one {cfg.name} evaluation at "
+                            f"{16 + score_fn.eval_batch['tokens'].shape[1]} positions",
+                            lambda: score_fn(res.entry), warm=2, reps=5, traced=2)
+    del look["bank"], look["results"], score_fn, res
+    free_card()
+    held_err = hold_recorded("[14b]", kept)
+    del kept
+    free_card()
+
+    # (c) the serve step at decode_32k, the cross cache filled from a seeded frontend
+    shape = INPUT_SHAPES["decode_32k"]
+    B, L = ENCDEC_SERVE_BATCH, shape.seq_len
+    per_row = cfg.num_layers * 2 * L * Hkv * hd * 2
+    print(f"[14c] {shape.name}: cache of {L} tokens, batch {shape.global_batch} -> {B} "
+          f"({per_row * B / 1e9:.1f} GB of self-attention K/V at batch {B}, "
+          f"{per_row * shape.global_batch / 1e9:.0f} GB at {shape.global_batch}); cross cache "
+          f"{cfg.num_layers} x 2 x {B} x {frames} x {Hkv} x {hd}")
+    cache = model.init_cache(B, L)
+    kv = cache["decoder"]["kv"]
+    filled = L - 8                                      # seeded K/V at positions 0..32759
+    for i in range(cfg.num_layers):
+        kv["k"][i, :, :filled].normal_(generator=gen)
+        kv["v"][i, :, :filled].normal_(generator=gen)
+    kv["pos"][:, :, :filled] = torch.arange(filled, device=dev, dtype=torch.int32)
+    fill_cross_kv(model, cache, torch.randn(B, frames, E, generator=gen, device=dev))
+    cross_before = cache["cross_kv"]["k"].clone()
+    serve = make_serve_step(model)
+    tok = torch.randint(3, V, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_steps, step_s, calls = L - filled, [], {}
+    kernels = {"flash_decode": flash_decode, "flash_attention": flash_attention,
+               "score_ce": score_ce}
+    for fn in kernels.values():
+        fn.launches = 0
+    with plain_calls(calls):
+        for i in range(n_steps):
+            t = time.perf_counter()
+            tok, cache = serve(cache, tok, filled + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if launches["flash_decode"] != 2 * cfg.num_layers * n_steps or any(calls.values()):
+        raise AssertionError(f"[14c] {n_steps} serve steps launched {launches}, not "
+                             f"{2 * cfg.num_layers} flash_decode a step, or a plain version "
+                             f"ran: {calls}")
+    if not ((tok >= 0) & (tok < V)).all() or not torch.equal(cache["cross_kv"]["k"], cross_before):
+        raise AssertionError("[14c] a serve step gave tokens outside the vocabulary or wrote "
+                             "the cross cache")
+    med = statistics.median(step_s[1:])
+    print(f"[14c] {n_steps} serve steps at cache_len {filled}..{L - 1}: "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms; median (steps 2..) {med * 1e3:.2f} ms per "
+          f"step, {B / med:.0f} tokens/s; launches {launches} "
+          f"({launches['flash_decode'] // n_steps} flash_decode a step: self and cross)")
+    step_profile = profile_calls(f"[14c] one serve step at batch {B}, cache {L - 1}",
+                                 lambda: serve(cache, tok, L - 1), warm=2, reps=5, traced=3)
+    for t in cache["cross_kv"].values():
+        t.zero_()                                       # the cross cache the reference leaves
+    with torch.no_grad():
+        logits, _ = model.decode_step(cache, tok, L - 1)
+    if not torch.isfinite(logits).all():
+        raise AssertionError("[14c] the step on the zero cross cache gave non-finite logits")
+    print(f"[14c] one step on the zero cross cache: logits finite, max |logit| "
+          f"{logits.abs().max().item():.3e}")
+    del cache, kv, cross_before, logits
+    free_card()
+    tokens = torch.randint(3, V, (2, 32), generator=gen, device=dev)
+    witness = encdec_depth_witness(model, tokens,
+                                   torch.randn(2, frames, E, generator=gen, device=dev))
+    state = cut_state(model, ENCDEC_CUT_LAYERS)
+    del model
+    free_card()
+    cut_rel = encdec_cut_vs_cpu(state, dev, gen)
+    free_card()
+    wall = time.perf_counter() - t_phase
+    print(f"[14] {cfg.name}: {wall:.1f} s")
+    decode_rows = kern["rows"]["flash_decode"]
+    decode_rows[0].update(launches=launches["flash_decode"], step_ms=med * 1e3,
+                          tokens_per_s=B / med, profile=step_profile)
+    return {"fa_rows": kern["rows"]["flash_attention"], "decode_rows": decode_rows,
+            "score_rows": score_rows, "worst": kern["worst"], "by_shape": look["by_shape"],
+            "per_eval": look["per_eval"], "decode_launches": launches["flash_decode"],
+            "profile": profile, "held_err": held_err, "witness": witness, "cut_rel": cut_rel,
+            "seconds": wall}
 
 
 # -- phase 9 --------------------------------------------------------------------
@@ -4042,7 +4276,7 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
                  pre: dict, service: dict, hybrid: dict, dense: dict, shapes: dict,
-                 fa_split: dict) -> list:
+                 timed: dict, encdec: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -4066,6 +4300,8 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
     rtune = rwkv["tune"]
     worst = {**worst, "mla_decode": mla["worst"], **bwd["worst"], "rwkv6_wkv_bwd": rtune["worst"],
              "score_ce_de": pre["worst"]}
+    for name, err in encdec["worst"].items():
+        worst[name] = max(worst[name], err)
     path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
     rwkv_tune = f"rwkv6-7b, tune ({rtune['iters']} iterations, 1 evaluation)"
     pretraining = f"gpt2-base, pretrain ({pre['steps']} steps)"
@@ -4085,18 +4321,22 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
                      + hybrid["score_rows"]
                      + [r for arch in dense.values() for r in arch["score_rows"]]
-                     + bwd["rows"]["score_ce"],
+                     + timed["score_ce"] + encdec["score_rows"] + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
                       **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
                       **path("zamba2-7b", hybrid["by_shape"]["score_ce"]),
                       **family("score_ce"), prefill_path: prefill["launches"]["score_ce"],
+                      **path("seamless-m4t-medium", encdec["by_shape"]["score_ce"]),
                       **tuning("score_ce"), **svc("score_ce")}),
         "flash_attention": (rows["flash_attention"] + hybrid["fa_rows"] + [shapes["fa_row"]]
+                            + timed["flash_attention"] + encdec["fa_rows"]
                             + bwd["rows"]["flash_attention"],
                             {**path("gpt2-base", launches["by_shape"]["flash_attention"]),
                              **path("zamba2-7b", hybrid["by_shape"]["flash_attention"]),
                              **family("flash_attention"),
+                             **path("seamless-m4t-medium",
+                                    encdec["by_shape"]["flash_attention"]),
                              prefill_path: prefill["launches"]["flash_attention"],
                              **tuning("flash_attention"), **svc("flash_attention")}),
         "score_ce_bwd": (bwd["rows"]["score_ce_bwd"],
@@ -4104,9 +4344,11 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
         "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
                                 {**tuning("flash_attention_bwd"),
                                  **svc("flash_attention_bwd")}),
-        "flash_decode": ([serve, hybrid["decode_row"]],
+        "flash_decode": ([serve, hybrid["decode_row"]] + encdec["decode_rows"],
                          {"qwen2-7b, serve steps": serve["launches"],
-                          "zamba2-7b, serve steps": hybrid["decode_row"]["launches"]}),
+                          "zamba2-7b, serve steps": hybrid["decode_row"]["launches"],
+                          "seamless-m4t-medium, serve steps (self and cross)":
+                              encdec["decode_launches"]}),
         "rwkv6_wkv": (rwkv["rows"], {**path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"]),
                                      **tuning("rwkv6_wkv")}),
         "rwkv6_wkv_bwd": (rtune["rows"], tuning("rwkv6_wkv_bwd")),
@@ -4120,7 +4362,6 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
              **({"counterpart": "none: the reference differentiates through XLA"}
                 if name.endswith(("_bwd", "_de")) else {}),
              **({"dq_run_to_run": bwd["dq_run_to_run"]} if name == "flash_attention_bwd" else {}),
-             **({"p_split_cost": fa_split["cost"]} if name == "flash_attention" else {}),
              "launches": sum(by_shape.values()),
              "launches_by_shape": by_shape, "max_abs_err": worst[name],
              **{k: rs[0][k] for k in keys}, "shapes": [{k: r[k] for k in keys} for r in rs[1:]]}
@@ -4139,8 +4380,8 @@ def main() -> None:
     dev = torch.device("cuda", 0)
     t_start = time.perf_counter()
 
-    card, one_term = phase_build()
-    worst, fa_split = phase_kernels(dev, args.seed, one_term)
+    card = phase_build()
+    worst, timed = phase_kernels(dev, args.seed)
     model, bank, results, launches = phase_slice(dev, args.seed)
     ref_cpu = phase_rescore(model, bank, results, args.seed)
     rows = phase_times(model, args.seed)
@@ -4163,9 +4404,11 @@ def main() -> None:
     free_card()
     dense = phase_dense(dev, args.seed)
     shapes = phase_long_shapes(dev, args.seed)
+    free_card()
+    encdec = phase_encdec(dev, args.seed)
 
     kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
-                           pre, service, hybrid, dense, shapes, fa_split)
+                           pre, service, hybrid, dense, shapes, timed, encdec)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

@@ -1,8 +1,9 @@
 """Configurations of the models the port runs so far: dense GQA decoders
 (the paper's gpt2-base, gpt2-large and vicuna-7b among them, and
 command-r-plus-104b's parallel LayerNorm block), the RWKV6
-family, the MLA + MoE family and the Zamba2 hybrid (Mamba2 + shared
-attention).
+family, the MLA + MoE family, the Zamba2 hybrid (Mamba2 + shared
+attention) and the encoder-decoder seamless-m4t-medium (audio frontend
+stub).
 
 ``get_config(arch)`` returns the full configuration, ``smoke_config(arch)``
 the reduced variant the CPU tests use (2 layers, d_model 256), and
@@ -25,6 +26,7 @@ from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
 from repro_torch.configs.phi3_medium_14b import phi3_medium_14b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
+from repro_torch.configs.seamless_m4t_medium import seamless_m4t_medium
 from repro_torch.configs.vicuna_7b import vicuna_7b
 from repro_torch.configs.zamba2_7b import zamba2_7b
 
@@ -38,7 +40,8 @@ def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:
 
 
 for _fn in (command_r_plus_104b, deepseek_v2_236b, gpt2_base, gpt2_large, internlm2_20b,
-            kimi_k2_1t_a32b, phi3_medium_14b, qwen2_7b, rwkv6_7b, vicuna_7b, zamba2_7b):
+            kimi_k2_1t_a32b, phi3_medium_14b, qwen2_7b, rwkv6_7b, seamless_m4t_medium,
+            vicuna_7b, zamba2_7b):
     register(_fn)
 
 
@@ -58,9 +61,10 @@ def smoke_config(arch: str) -> ModelConfig:
     expert of width 128; MLA gets ranks (kv 64, q 48) and head dims (nope
     32, rope 16, v 32); an SSM gets state 32, chunk 16 and (RWKV: d_model /
     state) 8 heads, a hybrid 4 attention heads, 5 layers and shared
-    attention every 2 (three Mamba2 segments, two applications).
-
-    The reduction rule for encoder-decoder models comes with that family."""
+    attention every 2 (three Mamba2 segments, two applications); an
+    encoder-decoder 2 encoder layers and a 16-row cross cache, and a
+    frontend 8 frames of width 48. The cross cache then has more rows
+    than the encoder's output, as in the reference's cut."""
     cfg = get_config(arch)
     kw: dict = dict(
         d_model=256,
@@ -88,6 +92,10 @@ def smoke_config(arch: str) -> ModelConfig:
     if cfg.hybrid is not None:
         kw["num_layers"] = 5
         kw["hybrid"] = dataclasses.replace(cfg.hybrid, attn_every=2)
+    if cfg.encdec is not None:
+        kw["encdec"] = dataclasses.replace(cfg.encdec, num_encoder_layers=2, encoder_seq_len=16)
+    if cfg.frontend.kind != "none":
+        kw["frontend"] = dataclasses.replace(cfg.frontend, num_embeddings=8, embed_dim=48)
     if cfg.mla is not None:
         kw["mla"] = dataclasses.replace(
             cfg.mla, kv_lora_rank=64, q_lora_rank=48, qk_nope_head_dim=32,

@@ -7,6 +7,7 @@ from repro_torch.core.bank_builder import (
     select_ideal,
     select_induction,
     select_manual,
+    select_score,
 )
 from repro_torch.core.prompt_bank import LookupResult, PromptBank, PromptEntry
 
@@ -22,4 +23,5 @@ __all__ = [
     "select_ideal",
     "select_induction",
     "select_manual",
+    "select_score",
 ]

@@ -84,6 +84,12 @@ def make_score_fn(model, task: TaskSpec, tune_cfg: TuneConfig,
     return ScoreContext(PromptTuner(model, tune_cfg), eval_batch)
 
 
+def select_score(bank: PromptBank, score_ctx: ScoreContext):
+    """The Prompt Bank two-layer lookup (the reference's alias of
+    ``bank.lookup``)."""
+    return bank.lookup(score_ctx)
+
+
 def select_manual(d_model: int, prompt_len: int, seed: int = 0) -> np.ndarray:
     """Manual initialization: a generic, uninformed prompt."""
     rng = np.random.default_rng(seed)

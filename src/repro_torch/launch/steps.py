@@ -107,7 +107,9 @@ def make_prefill_step(model, *, ce_chunk: int = 512) -> Callable[[Dict, Dict], t
 def make_serve_step(model) -> Callable[[Dict, torch.Tensor, int], Tuple[torch.Tensor, Dict]]:
     """One-token decode: ``serve_step(cache, tokens, cache_len) ->
     (next_token (B, 1) int32, cache)``, the next token by argmax. The
-    cache is updated in place (see ``Model.decode_step``)."""
+    cache is updated in place (see ``Model.decode_step``); an
+    encoder-decoder's cross keys and values (``cache["cross_kv"]``) are
+    carried from step to step unchanged."""
 
     def serve_step(cache: Dict, tokens, cache_len: int) -> Tuple[torch.Tensor, Dict]:
         logits, cache = model.decode_step(cache, tokens, cache_len)

@@ -1,6 +1,7 @@
-"""Attention families: dense GQA and DeepSeek-V2's multi-head latent
-attention (MLA) with its absorbed decode; projections, rotary embedding, the
-flash kernels and the decode step against a cache.
+"""Attention families: dense GQA, DeepSeek-V2's multi-head latent
+attention (MLA) with its absorbed decode, and an encoder-decoder's cross
+attention; projections, rotary embedding, the flash kernels and the decode
+step against a cache.
 
 Weight layouts are the reference's, so a JAX checkpoint loads without
 transposes: GQA ``wq`` (d, H, hd), ``wk``/``wv`` (d, Hkv, hd), ``wo`` (H, hd,
@@ -12,8 +13,11 @@ GQA attention over a full sequence always goes through ``ops.gqa_flash``,
 and decode against a contiguous cache prefix through
 ``ops.gqa_flash_decode``; MLA decode against a contiguous prefix goes through
 ``ops.mla_flash_decode``: on CUDA tensors the Hopper kernels, on CPU tensors
-their plain PyTorch versions. MLA over a full sequence is the reference's
-decompressed form through a plain masked attention, as the reference's is.
+their plain PyTorch versions. Cross attention goes through
+``ops.gqa_flash`` with ``causal=False`` over several queries and through
+``ops.gqa_flash_decode`` with every encoder row live for one query. MLA
+over a full sequence is the reference's decompressed form through a plain
+masked attention, as the reference's is.
 """
 from __future__ import annotations
 
@@ -290,3 +294,38 @@ def mla_decode(cfg: ModelConfig, p: MLAAttention, x: torch.Tensor,
         out_lat = torch.einsum("bhsl,blr->bshr", probs, c_kv)
     out = torch.einsum("bshr,rhv->bshv", out_lat, p.wkv_b_v)
     return torch.einsum("bshv,hvd->bsd", out, p.wo), cache
+
+
+# -- cross attention (encoder-decoder) ---------------------------------------------
+
+def cross_attention(cfg: ModelConfig, p: GQAAttention, x: torch.Tensor,
+                    enc_kv: Tuple[torch.Tensor, torch.Tensor]) -> torch.Tensor:
+    """x (B, S, d) against the encoder's keys and values ``enc_kv``, each
+    (B, Lenc, Hkv, hd) from ``encode_cross_kv``; ``p`` is a
+    ``GQAAttention``, as the reference's ``cross_attention_params`` are
+    ``gqa_params``. No rotary embedding and no mask: every encoder row is
+    live. S > 1 (a forward) runs ``ops.gqa_flash`` with ``causal=False``;
+    S = 1 (a decode step) runs ``ops.gqa_flash_decode`` with ``kv_len =
+    q_pos + 1 = Lenc``, since one query needs no 64-row query tile. The
+    reference's ``enc_valid`` mask has no caller there and is not taken."""
+    q = torch.einsum("bsd,dhk->bshk", x, p.wq)
+    if cfg.qkv_bias:
+        q = q + p.bq
+    k, v = enc_kv
+    if x.shape[1] == 1:
+        Lenc = k.shape[1]
+        out = ops.gqa_flash_decode(q, k, v, kv_len=Lenc, q_pos=Lenc - 1)
+    else:
+        out = ops.gqa_flash(q, k, v, causal=False)
+    return torch.einsum("bshd,hdk->bsk", out, p.wo)
+
+
+def encode_cross_kv(cfg: ModelConfig, p: GQAAttention, enc_out: torch.Tensor
+                    ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """One decoder layer's cross keys and values from the encoder's output
+    (B, Lenc, d): each (B, Lenc, Hkv, hd), unroped."""
+    k = torch.einsum("bsd,dhk->bshk", enc_out, p.wk)
+    v = torch.einsum("bsd,dhk->bshk", enc_out, p.wv)
+    if cfg.qkv_bias:
+        k, v = k + p.bk, v + p.bv
+    return k, v

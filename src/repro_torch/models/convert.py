@@ -5,8 +5,10 @@ start from one mid-run state.
 
 The reference stacks each segment's per-layer parameters on a leading axis
 (``blocks/attn/wq`` is (L, d, H, hd), ``moe/moe/w_gate`` (L, E, d, dff),
-``mamba0/mixer/in_z`` (6, d, d_inner)); a hybrid's ``shared_attn`` is one
-block and has no layer axis. The port keeps one module per layer
+``mamba0/mixer/in_z`` (6, d, d_inner), an encoder-decoder's
+``decoder/cross/wq`` and ``encoder/blocks/attn/wq``); a hybrid's
+``shared_attn``, the encoder's ``final_norm`` and ``frontend_proj`` have
+no layer axis. The port keeps one module per layer
 (``blocks.<i>.attn.wq`` is (d, H, hd)). Conversion slices the layer axis
 and transposes nothing: both packages use the same layouts.
 """
@@ -20,7 +22,7 @@ import torch
 if TYPE_CHECKING:   # imported where used: the train package imports this module's package
     from repro_torch.train.optimizer import OptState
 
-STACKED = ("blocks", "dense0", "moe")   # segments whose parameters carry a layer axis
+STACKED = ("blocks", "dense0", "moe", "decoder")   # segments whose parameters carry a layer axis
 
 
 def _stacked(seg: str) -> bool:
@@ -28,6 +30,15 @@ def _stacked(seg: str) -> bool:
     ``STACKED`` and a hybrid's Mamba2 segments ``mamba0``, ``mamba1``, ...
     (its ``shared_attn`` has none)."""
     return seg in STACKED or (seg.startswith("mamba") and seg[5:].isdigit())
+
+
+def _stack_names(parts) -> int:
+    """How many leading names of a path name a stack with a layer axis: 1
+    for a segment, 2 for an encoder-decoder's ``encoder/blocks``, 0 for a
+    leaf with no layer axis."""
+    if parts[:2] == ["encoder", "blocks"]:
+        return 2
+    return 1 if _stacked(parts[0]) else 0
 
 
 def flatten_tree(tree, prefix: str = "") -> Dict[str, Any]:
@@ -54,13 +65,14 @@ def params_from_jax(tree: Dict) -> Dict[str, torch.Tensor]:
     onto the model's device and dtype."""
     state: Dict[str, torch.Tensor] = {}
     for path, arr in flatten_tree(tree).items():
-        seg, *rest = path.split("/")
-        if _stacked(seg):
+        parts = path.split("/")
+        n = _stack_names(parts)
+        if n:
             arr = np.asarray(arr)
             for i in range(arr.shape[0]):
-                state[".".join([seg, str(i), *rest])] = _to_tensor(arr[i])
+                state[".".join([*parts[:n], str(i), *parts[n:]])] = _to_tensor(arr[i])
         else:
-            state[".".join([seg, *rest])] = _to_tensor(arr)
+            state[".".join(parts)] = _to_tensor(arr)
     return state
 
 
@@ -74,8 +86,9 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict:
         arr = t.detach().cpu()
         arr = (arr.float() if arr.dtype == torch.bfloat16 else arr).numpy()
         path = key.split(".")
-        if _stacked(path[0]):
-            layers.setdefault((path[0], *path[2:]), {})[int(path[1])] = arr
+        n = _stack_names(path)
+        if n:
+            layers.setdefault((*path[:n], *path[n + 1:]), {})[int(path[n])] = arr
             continue
         node = tree
         for p in path[:-1]:

@@ -4,14 +4,19 @@ full-sequence forward and its one-token decode step against a cache.
 Counterpart of the reference's ``Model`` for the dense decoders
 (``arch_type="dense"``), the SSM families (``arch_type="ssm"``: RWKV6 or
 Mamba2), the MoE family (``arch_type="moe"``), with GQA or MLA attention,
-and the Zamba2 hybrid (``arch_type="hybrid"``). As in the reference's
+the Zamba2 hybrid (``arch_type="hybrid"``) and the encoder-decoder
+(``arch_type="audio"``). As in the reference's
 ``plan_segments``, a dense or SSM model is the one segment ``blocks``, a MoE
 model the segments ``dense0`` (its first dense layers, FFN width
 ``d_ff_expert·(top_k + shared)``) and ``moe``, and a hybrid the Mamba2
 segments ``mamba0``, ``mamba1``, ... of ``attn_every`` layers each, with one
 shared attention + MLP block (``shared_attn``, one set of weights) applied
-after every segment but the last. Not ported yet: the encoder-decoder
-(``audio``) and VLM families, and the MoE expert-parallel dispatch.
+after every segment but the last. An encoder-decoder is the one segment
+``decoder`` of blocks with cross attention, beside ``encoder`` (its own
+stack of non-causal blocks and final norm, the reference's ``encoder``
+subtree) and ``frontend_proj``, which projects the frontend's frame
+embeddings to d_model. Not ported yet: the VLM family and the MoE
+expert-parallel dispatch.
 
 The reference stacks each segment's per-layer parameters on a leading axis
 and runs the stack with ``jax.lax.scan``; here each segment is an
@@ -25,7 +30,9 @@ first (``cache["blocks"]["kv"]["k"]`` is (layers, B, L, Hkv, hd),
 ``cache["moe"]["kv"]["c_kv"]`` (layers, B, L, r), ``cache["mamba0"]["state"]
 ["h"]`` (layers, B, H, state, 64)), and a hybrid's shared block one KV cache
 per application, ``cache["shared_attn"]["app<i>"]["kv"]``, with no layer
-axis; the cache is updated in place.
+axis; an encoder-decoder's cache also holds each decoder layer's cross keys
+and values, ``cache["cross_kv"]["k"]`` (layers, B, Lenc, Hkv, hd), which
+the decode step reads and never writes. The cache is updated in place.
 
 Like the reference, ``gpt2-base`` uses RoPE, not GPT-2's learned position
 table: the port follows the JAX package, not GPT-2.
@@ -41,7 +48,8 @@ from torch import nn
 
 from repro_torch import DeviceLike, resolve_device, torch_dtype
 from repro_torch.config import ModelConfig
-from repro_torch.models.attention import (GQAAttention, MLAAttention, gqa_decode, gqa_forward,
+from repro_torch.models.attention import (GQAAttention, MLAAttention, cross_attention,
+                                          encode_cross_kv, gqa_decode, gqa_forward,
                                           gqa_init_cache, mla_decode, mla_forward,
                                           mla_init_cache)
 from repro_torch.models.common import FFN, Norm, embed_tokens, unembed
@@ -62,7 +70,7 @@ EXPERT_STACKS = ("w_gate", "w_up", "w_down")   # (E, in, out) under a MoE layer
 
 @dataclass(frozen=True)
 class Segment:
-    kind: str          # dense | moe | rwkv | mamba
+    kind: str          # dense | moe | rwkv | mamba | decoder_cross
     count: int
     name: str
 
@@ -85,12 +93,15 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
             every = cfg.hybrid.attn_every
             return [Segment("mamba", min(every, L - i), f"mamba{g}")
                     for g, i in enumerate(range(0, L, every))]
-    later = {"audio": "the encoder-decoder slice", "vlm": "the VLM slice"}
+    if at == "audio" and cfg.encdec is not None and cfg.attention == "gqa" and cfg.moe is None:
+        return [Segment("decoder_cross", L, "decoder")]
+    later = {"vlm": "the VLM slice"}
     raise NotImplementedError(
         f"{cfg.name}: arch_type={cfg.arch_type!r}, attention={cfg.attention!r}, frontend="
         f"{cfg.frontend.kind!r} is not ported yet; it comes with "
         f"{later.get(at, 'a later slice')} (the port runs dense and MoE decoders with GQA or "
-        "MLA attention, the RWKV6 and Mamba2 families and the Zamba2 hybrid)")
+        "MLA attention, the RWKV6 and Mamba2 families, the Zamba2 hybrid and the GQA "
+        "encoder-decoder)")
 
 
 def dense_ffn_width(cfg: ModelConfig) -> int:
@@ -107,16 +118,22 @@ def make_attention(cfg: ModelConfig, device: torch.device, dtype: torch.dtype
 
 
 def attn_forward(cfg: ModelConfig, p: nn.Module, x: torch.Tensor,
-                 positions: torch.Tensor) -> torch.Tensor:
+                 positions: torch.Tensor, causal: bool = True) -> torch.Tensor:
     if cfg.attention == "mla":
-        return mla_forward(cfg, p, x, positions)
-    return gqa_forward(cfg, p, x, positions)
+        return mla_forward(cfg, p, x, positions, causal=causal)
+    return gqa_forward(cfg, p, x, positions, causal=causal)
 
 
 class DenseBlock(nn.Module):
-    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+    """A decoder block, or with ``causal`` False an encoder's (the
+    reference's ``encoder`` block kind: the same block, attention over
+    every position)."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype,
+                 causal: bool = True):
         super().__init__()
         self.cfg = cfg
+        self.causal = causal
         self.ln1 = Norm(cfg, cfg.d_model, device=device)
         self.attn = make_attention(cfg, device, dtype)
         self.ln2 = Norm(cfg, cfg.d_model, device=device)
@@ -126,8 +143,45 @@ class DenseBlock(nn.Module):
         cfg = self.cfg
         if cfg.parallel_block:
             h = self.ln1(x)
-            return x + attn_forward(cfg, self.attn, h, positions) + self.ffn(h)
-        x = x + attn_forward(cfg, self.attn, self.ln1(x), positions)
+            return x + attn_forward(cfg, self.attn, h, positions, self.causal) + self.ffn(h)
+        x = x + attn_forward(cfg, self.attn, self.ln1(x), positions, self.causal)
+        return x + self.ffn(self.ln2(x))
+
+
+class Encoder(nn.Module):
+    """An encoder-decoder's encoder (the reference's ``encoder`` subtree):
+    ``num_encoder_layers`` non-causal blocks and a final norm."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.blocks = nn.ModuleList(DenseBlock(cfg, device=device, dtype=dtype, causal=False)
+                                    for _ in range(cfg.encdec.num_encoder_layers))
+        self.final_norm = Norm(cfg, cfg.d_model, device=device)
+
+
+class DecoderCrossBlock(nn.Module):
+    """A decoder block with cross attention: causal self-attention, then
+    attention over the encoder's output, then the FFN, each pre-normed and
+    residual. ``cross`` holds the cross attention's projections."""
+
+    def __init__(self, cfg: ModelConfig, *, device: torch.device, dtype: torch.dtype):
+        super().__init__()
+        self.cfg = cfg
+        self.ln1 = Norm(cfg, cfg.d_model, device=device)
+        self.attn = GQAAttention(cfg, device=device, dtype=dtype)
+        self.lnx = Norm(cfg, cfg.d_model, device=device)
+        self.cross = GQAAttention(cfg, device=device, dtype=dtype)
+        self.ln2 = Norm(cfg, cfg.d_model, device=device)
+        self.ffn = FFN(cfg, device=device, dtype=dtype)
+
+    def forward(self, x: torch.Tensor, positions: torch.Tensor,
+                enc_out: torch.Tensor) -> torch.Tensor:
+        """The layer's cross keys and values come from ``enc_out`` (B, Lenc,
+        d), as in the reference's scan body."""
+        cfg = self.cfg
+        x = x + gqa_forward(cfg, self.attn, self.ln1(x), positions)
+        x = x + cross_attention(cfg, self.cross, self.lnx(x),
+                                encode_cross_kv(cfg, self.cross, enc_out))
         return x + self.ffn(self.ln2(x))
 
 
@@ -200,7 +254,8 @@ class SharedAttention(nn.Module):
         return x + self.ffn(self.ln2(x))
 
 
-BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "rwkv": RWKVBlock, "mamba": MambaBlock}
+BLOCKS = {"dense": DenseBlock, "moe": MoEBlock, "rwkv": RWKVBlock, "mamba": MambaBlock,
+          "decoder_cross": DecoderCrossBlock}
 
 
 def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
@@ -219,8 +274,11 @@ def block_cache(cfg: ModelConfig, kind: str, batch: int, length: int,
 
 
 def block_decode(cfg: ModelConfig, kind: str, block: nn.Module, x: torch.Tensor,
-                 cache: Dict, cache_len: int) -> torch.Tensor:
-    """One-token step of one layer; writes the layer's ``cache`` in place."""
+                 cache: Dict, cache_len: int,
+                 enc_kv: Optional[Tuple[torch.Tensor, torch.Tensor]] = None) -> torch.Tensor:
+    """One-token step of one layer; writes the layer's ``cache`` in place.
+    A ``decoder_cross`` layer also reads its cross keys and values
+    ``enc_kv``, each (B, Lenc, Hkv, hd)."""
     if kind == "mamba":
         y, st = mamba2_decode(cfg, block.mixer, block.ln(x), cache["state"])
         for name, t in st.items():
@@ -240,6 +298,8 @@ def block_decode(cfg: ModelConfig, kind: str, block: nn.Module, x: torch.Tensor,
     x = x + y
     if kind == "moe":
         return x + moe_ffn(cfg, block.moe, block.ln2(x))[0]
+    if kind == "decoder_cross":
+        x = x + cross_attention(cfg, block.cross, block.lnx(x), enc_kv)
     return x + block.ffn(block.ln2(x))
 
 
@@ -248,13 +308,15 @@ def _map(fn: Callable[[torch.Tensor], torch.Tensor], tree: Dict) -> Dict:
 
 
 class Model(nn.Module):
-    """Dense or MoE decoder (GQA or MLA attention), RWKV6 or Mamba2 model, or
-    Zamba2 hybrid on ``device`` (``cuda`` unless the caller passes
+    """Dense or MoE decoder (GQA or MLA attention), RWKV6 or Mamba2 model,
+    Zamba2 hybrid or encoder-decoder on ``device`` (``cuda`` unless the caller passes
     ``device="cpu"``), its weights drawn from ``seed``, or left
     uninitialised for a caller that loads them when ``seed`` is None. Each
     of ``segments`` is an ``nn.ModuleList`` attribute of its name
-    (``blocks``, or ``dense0`` and ``moe``, or ``mamba0``, ``mamba1``, ...),
-    and a hybrid's shared block is the attribute ``shared_attn``. The
+    (``blocks``, or ``dense0`` and ``moe``, or ``mamba0``, ``mamba1``, ...,
+    or ``decoder``), a hybrid's shared block is the attribute
+    ``shared_attn``, and an encoder-decoder's encoder ``encoder``. A model
+    with a frontend has ``frontend_proj`` (embed_dim, d_model). The
     weights are frozen (``requires_grad`` False, also after
     ``load_state_dict``), as the reference's are under LPT: a forward keeps
     no autograd graph unless the prompt requires grad, and then the graph
@@ -286,6 +348,13 @@ class Model(nn.Module):
                 BLOCKS[seg.kind](cfg, device=dev, dtype=pdt) for _ in range(seg.count)))
         if cfg.hybrid is not None and cfg.hybrid.shared_attn:
             self.shared_attn = SharedAttention(cfg, device=dev, dtype=pdt)
+        if cfg.encdec is not None:
+            self.encoder = Encoder(cfg, device=dev, dtype=pdt)
+        if cfg.frontend.kind != "none":
+            fe = cfg.frontend.embed_dim
+            self.frontend_proj = nn.Parameter(torch.empty(fe, d, device=dev, dtype=pdt))
+        else:
+            self.register_parameter("frontend_proj", None)
         self._train_weights = False
         self.requires_grad_(False)          # frozen, as the reference's: gradients reach the prompt only
         if seed is not None:
@@ -389,34 +458,72 @@ class Model(nn.Module):
 
     # -- forward ---------------------------------------------------------------
 
-    def embed_inputs(self, tokens, prompt: Optional[torch.Tensor] = None
+    def frontend_embeddings(self, frontend) -> torch.Tensor:
+        """frontend (B, F, embed_dim) @ ``frontend_proj`` in the two's
+        promoted dtype (f32 for an f32 frontend and bf16 weights), cast to
+        the model's dtype, as the reference computes it."""
+        if self.frontend_proj is None:
+            raise ValueError(f"{self.cfg.name} has no frontend")
+        f = torch.as_tensor(frontend, device=self.device)
+        dt = torch.promote_types(f.dtype, self.frontend_proj.dtype)
+        return (f.to(dt) @ self.frontend_proj.to(dt)).to(self.dtype)
+
+    def embed_inputs(self, tokens, prompt: Optional[torch.Tensor] = None,
+                     frontend: Optional[torch.Tensor] = None
                      ) -> Tuple[torch.Tensor, torch.Tensor]:
-        """[soft prompt][token embeddings] -> (x (B, S_total, d), positions
-        0..S_total-1). ``prompt`` is (P, d) shared or (B, P, d)."""
+        """[frontend embeddings][soft prompt][token embeddings] -> (x (B,
+        S_total, d), positions 0..S_total-1). ``prompt`` is (P, d) shared or
+        (B, P, d), ``frontend`` (B, F, embed_dim)."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed_tokens(self.embedding, tokens, self.dtype)
         B = x.shape[0]
+        parts = []
+        if frontend is not None:
+            parts.append(self.frontend_embeddings(frontend))
         if prompt is not None:
             pe = torch.as_tensor(prompt, device=self.device).to(x.dtype)
             if pe.dim() == 2:
                 pe = pe[None].expand(B, *pe.shape)
-            x = torch.cat([pe, x], dim=1)
+            parts.append(pe)
+        if parts:
+            x = torch.cat([*parts, x], dim=1)
         positions = torch.arange(x.shape[1], device=self.device)[None].expand(B, -1)
         return x, positions
 
-    def backbone(self, tokens, prompt: Optional[torch.Tensor] = None, *,
-                 return_aux: bool = False):
+    def encode(self, frontend) -> torch.Tensor:
+        """An encoder-decoder's encoder: the frontend (B, F, embed_dim)
+        projected (``frontend_embeddings``), the encoder's blocks over
+        positions 0..F-1 with no causal mask, and its final norm -> (B, F,
+        d)."""
+        if frontend is None:
+            raise ValueError(f"{self.cfg.name}: an encoder-decoder needs frontend "
+                             "(B, frames, embed_dim); pass it in the batch as \"frontend\"")
+        x = self.frontend_embeddings(frontend)
+        positions = torch.arange(x.shape[1], device=self.device)[None].expand(x.shape[0], -1)
+        for block in self.encoder.blocks:
+            x = block(x, positions)
+        return self.encoder.final_norm(x)
+
+    def backbone(self, tokens, prompt: Optional[torch.Tensor] = None,
+                 frontend: Optional[torch.Tensor] = None, *, return_aux: bool = False):
         """Everything up to and including the final norm: hidden (B, S, d),
         or with ``return_aux`` (hidden, {"aux_loss": the MoE layers' router
         losses summed in layer order, 0 for a model without them}), as the
-        reference's ``backbone`` returns."""
-        x, positions = self.embed_inputs(tokens, prompt)
+        reference's ``backbone`` returns. An encoder-decoder's ``frontend``
+        goes to the encoder only, and each decoder layer computes its cross
+        keys and values from the encoder's output."""
+        enc_out = None
+        if self.cfg.encdec is not None:
+            enc_out, frontend = self.encode(frontend), None
+        x, positions = self.embed_inputs(tokens, prompt, frontend)
         aux = torch.zeros((), dtype=torch.float32, device=self.device)
         for si, seg in enumerate(self.segments):
             for block in getattr(self, seg.name):
                 if seg.kind == "moe":
                     x, a = block(x, positions)
                     aux = aux + a
+                elif seg.kind == "decoder_cross":
+                    x = block(x, positions, enc_out)
                 else:
                     x = block(x, positions)
             if self._shared_after(si):
@@ -424,9 +531,11 @@ class Model(nn.Module):
         x = self.final_norm(x)
         return (x, {"aux_loss": aux}) if return_aux else x
 
-    def forward(self, tokens, prompt: Optional[torch.Tensor] = None) -> torch.Tensor:
+    def forward(self, tokens, prompt: Optional[torch.Tensor] = None,
+                frontend: Optional[torch.Tensor] = None) -> torch.Tensor:
         """Logits (B, S_total, V) in f32."""
-        return unembed(self.cfg, self.embedding, self.unembed, self.backbone(tokens, prompt))
+        return unembed(self.cfg, self.embedding, self.unembed,
+                       self.backbone(tokens, prompt, frontend))
 
     def _shared_after(self, si: int) -> bool:
         """Whether the hybrid's shared block runs after segment ``si``: after
@@ -445,7 +554,9 @@ class Model(nn.Module):
         the layer axis first; a hybrid also has ``{"shared_attn": {"app<i>":
         {"kv": {"k", "v", "pos"}}}}``, one KV cache for each application of
         the shared block (its weights are shared, its keys and values are
-        not)."""
+        not). An encoder-decoder's has ``{"cross_kv": {"k", "v"}}``, each
+        (layers, B, encoder_seq_len, Hkv, hd) of zeros, as the reference's:
+        the caller fills it from ``encode`` and ``encode_cross_kv``."""
         cache = {}
         for seg in self.segments:
             one = block_cache(self.cfg, seg.kind, batch, length, self.device)
@@ -454,6 +565,12 @@ class Model(nn.Module):
             cache["shared_attn"] = {
                 f"app{i}": block_cache(self.cfg, "dense", batch, length, self.device)
                 for i in range(len(self.segments) - 1)}
+        cfg = self.cfg
+        if cfg.encdec is not None:
+            shape = (self.segments[0].count, batch, cfg.encdec.encoder_seq_len, cfg.kv_heads(),
+                     cfg.resolved_head_dim())
+            cache["cross_kv"] = {k: torch.zeros(shape, dtype=self.dtype, device=self.device)
+                                 for k in ("k", "v")}
         return cache
 
     @torch.no_grad()
@@ -461,14 +578,18 @@ class Model(nn.Module):
                     ) -> Tuple[torch.Tensor, Dict]:
         """tokens (B, 1) int at position ``cache_len`` (a Python int: the
         tokens already cached). Returns (logits (B, 1, V) f32, cache), the
-        cache updated in place."""
+        cache updated in place; an encoder-decoder's ``cross_kv`` is read,
+        layer by layer, and returned unchanged."""
         tokens = torch.as_tensor(tokens, device=self.device)
         x = embed_tokens(self.embedding, tokens, self.dtype)
         for si, seg in enumerate(self.segments):
             layers = cache[seg.name]
             for i, block in enumerate(getattr(self, seg.name)):
+                enc_kv = None
+                if seg.kind == "decoder_cross":
+                    enc_kv = (cache["cross_kv"]["k"][i], cache["cross_kv"]["v"][i])
                 x = block_decode(self.cfg, seg.kind, block, x, _map(lambda t: t[i], layers),
-                                 int(cache_len))
+                                 int(cache_len), enc_kv)
             if self._shared_after(si):
                 x = self.shared_attn.decode(x, cache["shared_attn"][f"app{si}"], int(cache_len))
         x = self.final_norm(x)

@@ -63,8 +63,10 @@ def lpt_loss_chunked(model, prompt: Optional[torch.Tensor], batch: Dict[str, tor
                      ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """The production LPT loss: the backbone, then the chunked CE over the
     token region. Returns (mean + the backbone's auxiliary loss, (mean,
-    per-example)), the reference's value up to summation order."""
-    hidden, aux = model.backbone(batch["tokens"], prompt=prompt, return_aux=True)
+    per-example)), the reference's value up to summation order. An
+    encoder-decoder's frontend comes in ``batch["frontend"]``."""
+    hidden, aux = model.backbone(batch["tokens"], prompt=prompt, frontend=batch.get("frontend"),
+                                 return_aux=True)
     S = batch["tokens"].shape[1]
     loss, per_ex = chunked_token_cross_entropy(model, hidden[:, -S:], batch["labels"],
                                                batch["mask"], chunk=chunk)
@@ -75,7 +77,8 @@ def lpt_loss(model, prompt: Optional[torch.Tensor], batch: Dict[str, torch.Tenso
              ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, torch.Tensor]]:
     """Loss of the model with a soft prompt prepended (the LPT objective).
 
-    batch: {"tokens", "labels", "mask"}, each (B, S), on the model's device.
+    batch: {"tokens", "labels", "mask"}, each (B, S), on the model's device,
+    and for a model with a frontend "frontend" (B, F, embed_dim).
     The backbone runs on [prompt; tokens]; the token region's hidden states
     go through the fused ``score_ce`` against the output embedding, so the
     (B, S, V) logits are never formed. The (V, d) output embedding is the
@@ -85,7 +88,8 @@ def lpt_loss(model, prompt: Optional[torch.Tensor], batch: Dict[str, torch.Tenso
     layers' router losses enter the first term only, and models without
     MoE layers add 0."""
     _no_soft_cap(model.cfg)
-    hidden, aux = model.backbone(batch["tokens"], prompt=prompt, return_aux=True)
+    hidden, aux = model.backbone(batch["tokens"], prompt=prompt, frontend=batch.get("frontend"),
+                                 return_aux=True)
     S = batch["tokens"].shape[1]
     loss, per_ex = ops.fused_score_ce(hidden[:, -S:], model.output_embedding(),
                                       batch["labels"], batch["mask"])

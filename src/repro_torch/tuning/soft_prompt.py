@@ -176,7 +176,8 @@ def activation_features(model, prompt, *, probes: Optional[np.ndarray] = None,
     The LLM runs on ``[prompt, probe tokens]`` for a handful of fixed probe
     inputs; the feature is the concatenated final-position hidden state per
     probe, L2-normalised. ``prompt`` is (P, d) or (B, P, d); returns (n·d,)
-    or (B, n·d) as numpy f32."""
+    or (B, n·d) as numpy f32. A model with a frontend gets the reference's
+    all-zero frontend (B·n, F, embed_dim) f32."""
     dev = model.device
     prompt = torch.as_tensor(prompt, device=dev)
     if prompt.dim() == 2:
@@ -187,7 +188,12 @@ def activation_features(model, prompt, *, probes: Optional[np.ndarray] = None,
     probes = torch.as_tensor(np.array(probes), device=dev)
     n, L = probes.shape
     tokens = probes[None].expand(B, n, L).reshape(B * n, L)
-    hidden = model.backbone(tokens, prompt=prompt.repeat_interleave(n, dim=0))
+    frontend = None
+    fc = model.cfg.frontend
+    if fc.kind != "none":
+        frontend = torch.zeros((B * n, fc.num_embeddings, fc.embed_dim), dtype=torch.float32,
+                               device=dev)
+    hidden = model.backbone(tokens, prompt=prompt.repeat_interleave(n, dim=0), frontend=frontend)
     feat = hidden[:, -1].float().reshape(B, -1)           # prediction state per probe
     feat = feat / (feat.norm(dim=-1, keepdim=True) + 1e-8)
     feat = feat.cpu().numpy()

@@ -257,9 +257,9 @@ def test_mla_decode_raises_on_cuda_misuse(as_if_cuda):
 
 
 def test_unported_families_raise():
-    """The MoE family, Mamba2 and the Zamba2 hybrid are ported and build
-    with the reference's segment names; the encoder-decoder (audio) and VLM
-    families still raise, naming their slice."""
+    """The MoE family, Mamba2, the Zamba2 hybrid and the encoder-decoder
+    (audio) are ported and build with the reference's segment names; the
+    VLM family still raises, naming its slice."""
     from repro_torch.config import EncDecConfig, FrontendConfig, MoEConfig
 
     moe = smoke_config("qwen2-7b").with_overrides(
@@ -278,9 +278,11 @@ def test_unported_families_raise():
     audio = smoke_config("qwen2-7b").with_overrides(
         arch_type="audio", encdec=EncDecConfig(num_encoder_layers=2, encoder_seq_len=16),
         frontend=FrontendConfig(kind="audio", num_embeddings=8, embed_dim=48))
-    for cfg, slice_name in ((vlm, "VLM slice"), (audio, "encoder-decoder slice")):
-        with pytest.raises(NotImplementedError, match=slice_name):
-            Model(cfg, device="cpu")
+    encdec = Model(audio, device="cpu")
+    assert [(s.name, s.kind) for s in encdec.segments] == [("decoder", "decoder_cross")]
+    assert len(encdec.encoder.blocks) == 2 and encdec.frontend_proj.shape == (48, 256)
+    with pytest.raises(NotImplementedError, match="VLM slice"):
+        Model(vlm, device="cpu")
 
 
 def test_flash_attention_bwd_raises_at_head_dim_112(as_if_cuda):

@@ -166,7 +166,7 @@ def test_load_jax_checkpoint_roundtrip(tmp_path):
 @pytest.mark.parametrize("arch", ["gpt2-base", "gpt2-large", "vicuna-7b", "qwen2-7b",
                                   "rwkv6-7b", "deepseek-v2-236b", "kimi-k2-1t-a32b",
                                   "zamba2-7b", "internlm2-20b", "phi3-medium-14b",
-                                  "command-r-plus-104b"])
+                                  "command-r-plus-104b", "seamless-m4t-medium"])
 def test_config_equals_the_reference_field_by_field(arch):
     """Every config the port registers is the reference's, field by field,
     and so is its smoke cut."""
