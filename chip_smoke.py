@@ -97,8 +97,13 @@ Phases, in order; any failure ends the run with a non-zero exit:
    MHA at hd 64, causal, windowed, q_offset > 0, kv_len < L, S not a tile
    multiple, rows with nothing live, vicuna-7b's 4112 positions, and the
    bf16 kernel's edges: S = L = 127, 128, 129, 257 around its 128-row KV
-   tile, a GQA group of 7, a window and kv_len ending inside a KV tile;
-   score_ce: gpt2-base's, vicuna-7b's and deepseek-v2's (D, V), T = 1, 64,
+   tile, a GQA group of 7, a window and kv_len ending inside a KV tile; at
+   head dim 112 (zamba2-7b, the bf16 kernel padded to 128) its tuning
+   shape B = 8, H = 32, S = 33, S = L = 513 and 4112, and S = 127, 129, 257
+   and a window and kv_len ending inside a tile; seamless-m4t-medium's
+   cross attention, not causal, B = 2, H = 16, S = 4112 against L = 1024
+   and S = 33 against L = 1000 with kv_len 937, each of these also timed
+   beside SDPA's backward; score_ce: gpt2-base's, vicuna-7b's and deepseek-v2's (D, V), T = 1, 64,
    65, 128, 129, 136, 272, 273, 512 and 8192, masked tokens, two and four
    vocabulary chunks), each twice: dk, dv, f32 dq and score_ce's gradient
    must be bitwise equal between the two calls, and the largest bf16 dq
@@ -169,9 +174,15 @@ Phases, in order; any failure ends the run with a non-zero exit:
    candidates in 12 clusters and three lookups (33, 33 and 513 positions),
    flash_attention launched 13 times an evaluation and score_ce at
    D = 3584, V = 32000, no plain version run; one evaluation profiled;
-   flash_attention and score_ce timed at its shapes; a PromptTuner.step,
-   which must raise at the flash_attention backward (no hd-112 kernel
-   yet) before any backward launch. (b) Teacher-forced decode of 32
+   flash_attention and score_ce timed at its shapes. (e) Three
+   PromptTuner.steps at TuneConfig's defaults (batch 8 x 33 positions) from
+   a bank prompt: flash_attention_bwd (hd 112) launched 13 times a step,
+   the Mamba2 blocks' backward through autograd, no plain version run; the
+   first step's backward calls held against the plain backward; one step
+   profiled; the first batch's prompt gradient in bf16 against the same
+   weights in f32, within HYBRID_PLAIN_FACTOR of the same gap with the
+   attention's forward and backward replaced by their plain versions.
+   (b) Teacher-forced decode of 32
    tokens against the forward: block by block in bf16 and f32, end to end
    in f32, and end to end in bf16 within HYBRID_PLAIN_FACTOR of the same
    gap with both attention kernels replaced by their plain versions. (c) decode_32k with
@@ -180,7 +191,8 @@ Phases, in order; any failure ends the run with a non-zero exit:
    flash_decode launched 13 times a step and no plain version run;
    flash_decode timed at that shape; one step profiled. (d) A 7-layer f32
    cut (6 + 1 Mamba2 layers, one shared application), card against CPU:
-   Eqn-1 scores of 4 candidates, 4 decode steps.
+   Eqn-1 scores of 4 candidates, 4 decode steps, the tuning batch's loss
+   and prompt gradient.
 
 12. The last three dense configs at full width, bf16, weights from --seed
    (after phase 11): internlm2-20b (48 layers) and phi3-medium-14b (40) at
@@ -222,9 +234,18 @@ Phases, in order; any failure ends the run with a non-zero exit:
    launched 24 times a step (self and cross) and the cross cache left
    unwritten; one step profiled; one step on the zero cross cache the
    reference leaves; teacher-forced decode of 32 tokens against the
-   forward, held layer by layer and end to end; a 2 + 2-layer f32 cut, card
-   against CPU, on the Eqn-1 loss with a seeded frontend and 4 decode
-   steps.
+   forward, held layer by layer and end to end; (d) make_train_step at
+   train_4k (256 rows of 4096 tokens + 16 prompt positions, microbatches of
+   8, a seeded 1024 x 1024 f32 frontend in every row), a warm-up and two
+   steps, and three PromptTuner.steps at batch 8 x 33: flash_attention_bwd
+   launched 24 times a microbatch (self and cross, the cross attention not
+   causal at S = 4112 against L = 1024), never at the encoder's S = L =
+   1024, no plain version run; each first step's backward calls held
+   against the plain backward; the first microbatch's prompt gradient in
+   bf16 against f32 on a 4 + 4-layer cut; a 2 + 2-layer f32 cut, card
+   against CPU, on the Eqn-1 loss with a seeded frontend, 4 decode steps,
+   and the loss and prompt gradient of a train_4k row's first 1024 tokens
+   and of the tuning batch.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -1455,20 +1476,43 @@ def teacher_forced(label: str, model, tokens: torch.Tensor) -> float:
 
 
 @contextlib.contextmanager
-def plain_attention():
+def plain_attention(bwd=None):
     """Routes the model's flash_attention and flash_decode calls through
     their plain versions, on the card too: full f32 softmax and P·V, P
-    never rounded to bf16."""
+    never rounded to bf16. Under autograd the attention's backward is
+    ``bwd(q, k, v, out, dout, lse, **kw)``, flash_attention_bwd_plain (f32
+    P and dS) unless given."""
     from repro_torch.kernels import flash_attention as fa_mod
     from repro_torch.kernels import flash_decode as fd_mod
     from repro_torch.kernels import ops
+
+    if bwd is None:
+        bwd = lambda *a, **kw: fa_mod.flash_attention_bwd_plain(*a, **kw)   # noqa: E731
+
+    class PlainAttention(torch.autograd.Function):
+        @staticmethod
+        def forward(ctx, q, k, v, kw):
+            out, lse = fa_mod.flash_attention_plain(q, k, v, return_lse=True, **kw)
+            ctx.save_for_backward(q, k, v, out, lse)
+            ctx.kw = kw
+            return out
+
+        @staticmethod
+        def backward(ctx, dout):
+            q, k, v, out, lse = ctx.saved_tensors
+            return (*bwd(q, k, v, out, dout, lse, **ctx.kw), None)
+
+    def attention(q, k, v, **kw):
+        if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+            return PlainAttention.apply(q, k, v, kw)
+        return fa_mod.flash_attention_plain(q, k, v, **kw)
 
     def decode(q, k, v, *, splits=None, **kw):
         return fd_mod.flash_decode_plain(
             q, k, v, splits=fd_mod.DEFAULT_SPLITS if splits is None else splits, **kw)
 
     saved = ops.flash_attention, ops.flash_decode
-    ops.flash_attention = lambda q, k, v, **kw: fa_mod.flash_attention_plain(q, k, v, **kw)
+    ops.flash_attention = attention
     ops.flash_decode = decode
     try:
         yield
@@ -2526,20 +2570,158 @@ def hybrid_depth_witness(label: str, model, tokens: torch.Tensor) -> dict:
             "names": names, "logits_gap": logits_gap}
 
 
+def prompt_loss_grad(model, prompt0: np.ndarray, batch: dict, chunked: bool = False):
+    """(mean loss, the prompt's gradient in f32) of one batch on ``model``
+    from the soft prompt ``prompt0``: through lpt_loss, as PromptTuner.step
+    takes it, or lpt_loss_chunked, as make_train_step does. The batch's
+    tensors are moved to the model's device."""
+    from repro_torch.models import prompt_from_arrays
+    from repro_torch.train import lpt_loss, lpt_loss_chunked
+
+    p = prompt_from_arrays({"soft_prompt": prompt0}, model.device)["soft_prompt"]
+    batch = {k: torch.as_tensor(v, device=model.device) for k, v in batch.items()}
+    tot, (loss, _) = (lpt_loss_chunked if chunked else lpt_loss)(model, p, batch)
+    (g,) = torch.autograd.grad(tot, p)
+    return float(loss.detach()), g.detach().float()
+
+
+def grad_card_vs_cpu(label: str, card, cpu, prompt0: np.ndarray, batch: dict, loss_tol: float,
+                     chunked: bool = False) -> dict:
+    """An f32 depth cut's loss and prompt gradient, card (kernels) against
+    CPU (plain versions), on the same batch and prompt: the loss at
+    ``loss_tol`` relative, the gradient at TUNE_F32_PROMPT_TOL in relative
+    norm."""
+    lc, gc = prompt_loss_grad(cpu, prompt0, batch, chunked)
+    lg, gg = prompt_loss_grad(card, prompt0, batch, chunked)
+    rel_l, rel_g = abs(lg - lc) / abs(lc), rel_gap(gg.cpu(), gc)
+    print(f"{label}, card f32 against CPU f32: loss card {lg:.7f} cpu {lc:.7f} (rel {rel_l:.2e}, "
+          f"tol {loss_tol}); prompt gradient ||card - cpu|| / ||cpu|| = {rel_g:.2e} (tol "
+          f"{TUNE_F32_PROMPT_TOL}, ||cpu|| {gc.norm().item():.3e})")
+    if not (rel_l <= loss_tol and rel_g <= TUNE_F32_PROMPT_TOL):
+        raise AssertionError(f"{label}: the card's f32 loss or prompt gradient left the CPU's")
+    return {"loss": rel_l, "grad": rel_g}
+
+
+TUNING_STEPS = 3   # PromptTuner.steps at the service's tuning shape (11e, 14d)
+
+
+def tuner_steps(label: str, model, prompt0: np.ndarray, batches: list, per_step: int) -> dict:
+    """PromptTuner.steps at TuneConfig's defaults on ``batches`` from the
+    soft prompt ``prompt0``, as a main path (main_path): flash_attention_bwd
+    launched ``per_step`` times a step, every loss and the prompt finite;
+    the first step's backward calls recorded and held against the plain
+    backward (hold_recorded_bwd); then one step profiled. Returns the
+    launches, the losses, the (q, k) shapes of the first step's backward
+    calls, the profile and the largest held error."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.models import prompt_from_arrays
+    from repro_torch.tuning import PromptTuner
+
+    tuner = PromptTuner(model, TuneConfig())
+    B, S = batches[0]["tokens"].shape
+    positions = tuner.tune_cfg.prompt_len + S
+    seen, kept_bwd = [], {}
+
+    def run():
+        pp = prompt_from_arrays({"soft_prompt": prompt0}, model.device)
+        st, losses = tuner.init_opt(pp), []
+        for i, b in enumerate(batches):
+            with (recorded_attention(seen, None, kept_bwd) if i == 0 else contextlib.nullcontext()):
+                pp, st, loss = tuner.step(pp, st, b)
+            losses.append(float(loss))
+        return pp, losses
+
+    n = len(batches)
+    (pp, losses), launches = main_path(f"{label} {n} PromptTuner.steps, batch {B} x {positions} "
+                                       "positions", run)
+    shapes = sorted({(c["q"][0], c["k"][0]) for c in seen if c.get("bwd")})
+    print(f"{label} losses {[round(x, 6) for x in losses]}; flash_attention_bwd launches "
+          f"{launches['flash_attention_bwd']} ({per_step} a step expected), the first step's "
+          f"backward calls at (q, k) shapes {shapes}")
+    if (launches["flash_attention_bwd"] != per_step * n or not np.isfinite(losses).all()
+            or not torch.isfinite(pp["soft_prompt"]).all()):
+        raise AssertionError(f"{label} the tuning steps launched flash_attention_bwd "
+                             f"{launches['flash_attention_bwd']} times, not {per_step} a step, "
+                             f"or gave a non-finite loss or prompt: {losses}")
+    held = hold_recorded_bwd(label, kept_bwd)
+    del kept_bwd
+    holder = {"pp": pp, "st": tuner.init_opt(pp)}
+
+    def one_step():
+        holder["pp"], holder["st"], _ = tuner.step(holder["pp"], holder["st"], batches[0])
+
+    profile = step_profile(f"{label} one {model.cfg.name} PromptTuner.step, batch {B} x "
+                           f"{positions} positions", one_step, B * positions, warm=1, reps=3,
+                           traced=1)
+    del holder
+    free_card()
+    return {"launches": launches, "losses": losses, "bwd_shapes": shapes, "profile": profile,
+            "held": held}
+
+
+def hybrid_tune(model, prompt0: np.ndarray, seed: int, apps: int) -> dict:
+    """11e: TUNING_STEPS PromptTuner.steps of zamba2-7b (tuner_steps; batch
+    8, 16 prompt positions, a 17-token task) from a bank prompt:
+    flash_attention_bwd launched once a shared-attention application (hd
+    112), the Mamba2 blocks' backward through autograd. Then the first
+    batch's prompt gradient in bf16 against the same weights in f32 on the
+    card, beside the same bf16 gradient through the plain attention
+    (plain_attention: f32 P and dS): Mamba2's rounding compounds over
+    depth, so the kernels' gap is held within HYBRID_PLAIN_FACTOR of the
+    plain route's."""
+    from repro_torch.config import TuneConfig
+    from repro_torch.data import LoaderConfig, TaskLoader
+    from repro_torch.models import Model
+
+    t0 = time.perf_counter()
+    loader = TaskLoader(synthetic_task(), LoaderConfig(batch_size=TuneConfig().batch_size,
+                                                       seed=seed))
+    batches = [next(loader) for _ in range(TUNING_STEPS)]
+    prompt0 = np.asarray(prompt0, np.float32)
+    steps = tuner_steps("[11e]", model, prompt0, batches, apps)
+
+    grads, calls = {}, {}
+    for route in ("kernels", "plain"):
+        with plain_calls(calls), (plain_attention() if route == "plain"
+                                  else contextlib.nullcontext()):
+            _, grads[route] = prompt_loss_grad(model, prompt0, batches[0])
+        if (calls["flash_attention_bwd_plain"] > 0) != (route == "plain"):
+            raise AssertionError(f"[11e] the {route} route ran the wrong backward: {calls}")
+        calls.clear()
+    f32 = Model(model.cfg.with_overrides(dtype="float32", param_dtype="float32"),
+                device=model.device, seed=None)
+    f32.load_state_dict(model.state_dict())               # the same weights, widened
+    _, grads["f32"] = prompt_loss_grad(f32, prompt0, batches[0])
+    del f32
+    free_card()
+    gap = {route: rel_gap(grads[route], grads["f32"]) for route in ("kernels", "plain")}
+    print(f"[11e] the first batch's prompt gradient at {model.cfg.num_layers} layers, bf16 against "
+          f"f32 (f32 kernels, the same weights): ||bf16 - f32|| / ||f32|| kernels "
+          f"{gap['kernels']:.3e}, plain attention (f32 P and dS) {gap['plain']:.3e}: ratio "
+          f"{gap['kernels'] / max(gap['plain'], 1e-30):.3f} (tol {HYBRID_PLAIN_FACTOR})")
+    if not (np.isfinite(list(gap.values())).all()
+            and gap["kernels"] <= HYBRID_PLAIN_FACTOR * gap["plain"]):
+        raise AssertionError(f"[11e] zamba2-7b's bf16 prompt gradient parts from f32 by "
+                             f"{gap['kernels']:.3e} with the kernels, more than "
+                             f"{HYBRID_PLAIN_FACTOR} x the plain route's {gap['plain']:.3e}")
+    return {**steps, "steps": len(batches), "gap": gap, "prompt0": prompt0,
+            "batch": batches[0], "seconds": time.perf_counter() - t0}
+
+
 def phase_hybrid(dev: torch.device, seed: int) -> dict:
     """zamba2-7b (Mamba2 + one shared attention block) at full width and
     depth, bf16, weights from --seed."""
-    from repro_torch.config import INPUT_SHAPES, TuneConfig
+    from repro_torch.config import INPUT_SHAPES
     from repro_torch.configs import get_config
     from repro_torch.core import make_score_fn
-    from repro_torch.data import LoaderConfig, TaskLoader, make_tasks
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    from repro_torch.data import make_tasks
+    from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
     from repro_torch.launch import make_serve_step
-    from repro_torch.models import Model, prompt_from_arrays
+    from repro_torch.models import Model
     from repro_torch.models.ssm import mamba2_dims
-    from repro_torch.tuning import PromptTuner
 
+    t_phase = time.perf_counter()
     cfg = get_config("zamba2-7b")                       # full width and depth, bf16
     t0 = time.perf_counter()
     model = Model(cfg, device=dev, seed=seed)
@@ -2579,27 +2761,9 @@ def phase_hybrid(dev: torch.device, seed: int) -> dict:
     score_rows = score_ce_rows("[11a]", cfg.name, model.output_embedding().detach(),
                                (16 * 17, 16 * 497), gen)
 
-    # a tuning step reaches the flash_attention backward at hd 112, which
-    # has no kernel yet: it must raise there, with no plain backward run
-    tuner = PromptTuner(model, TuneConfig())
-    loader = TaskLoader(synthetic_task(), LoaderConfig(batch_size=2, seed=seed))
-    prompt = prompt_from_arrays({"soft_prompt": seed_prompts[tasks[0].task_id]}, dev)
-    before, calls = flash_attention_bwd.launches, {}
-    try:
-        with plain_calls(calls):
-            tuner.step(prompt, tuner.init_opt(prompt), next(loader))
-    except NotImplementedError as e:
-        message = str(e)
-    else:
-        raise AssertionError("[11a] a zamba2-7b tuning step ran: flash_attention_bwd at hd "
-                             f"{hd} should have raised")
-    if (flash_attention_bwd.launches != before or any(calls.values())
-            or "zamba2-7b tuning slice" not in message):
-        raise AssertionError(f"[11a] the tuning step did not stop at the backward's check: "
-                             f"{message!r}, launches {flash_attention_bwd.launches - before}, "
-                             f"plain calls {calls}")
-    print(f"[11a] PromptTuner.step raised before any flash_attention_bwd launch: {message}")
-    del tuner, prompt
+    # (e) prompt tuning: PromptTuner.step at the service's tuning shape from
+    # the first request's bank prompt, held in bf16 against f32
+    tune = hybrid_tune(model, res.entry.prompt, seed, apps)
     free_card()
 
     # (b) decode against the forward pass: block by block in bf16 and f32, end
@@ -2756,14 +2920,21 @@ def phase_hybrid(dev: torch.device, seed: int) -> dict:
                                        lg.cpu(), lc, F32_LOGIT_TOL))
     print(f"[11d] {HYBRID_CUT_LAYERS}-layer f32 cut: 4 decode steps, card (kernels) against CPU "
           f"(plain versions): max abs logit diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    cut_grad = grad_card_vs_cpu(f"[11d] {HYBRID_CUT_LAYERS}-layer f32 cut, PromptTuner's loss",
+                                card, cpu, tune["prompt0"], tune["batch"], TUNE_F32_LOSS_RTOL)
     del card, cpu
     free_card()
     if failed:
         raise AssertionError(f"[11d] zamba2-7b card scores disagree with the CPU f32 path for "
                              f"{failed}")
+    print(f"[11] {cfg.name}: {time.perf_counter() - t_phase:.1f} s, of which tuning (11e) "
+          f"{tune['seconds']:.1f} s")
     return {"by_shape": by_shape, "launches": launches, "profiles": profiles,
             "fa_rows": fa_rows, "score_rows": score_rows, "decode_row": decode_row,
-            "serve_profile": serve_profile, "cut_score_rel": worst_score, "cut_logit": worst}
+            "serve_profile": serve_profile, "cut_score_rel": worst_score, "cut_logit": worst,
+            "tune_launches": tune["launches"], "tune_steps": tune["steps"],
+            "tune_profile": tune["profile"], "grad_gap": tune["gap"], "cut_grad": cut_grad,
+            "bwd_held": tune["held"]}
 
 
 # -- phase 12 -------------------------------------------------------------------
@@ -2914,33 +3085,54 @@ def f32_attention():
 
 def strided_copy(x: torch.Tensor) -> torch.Tensor:
     """A copy of ``x`` with its shape and strides (clone may make a view of
-    a wider tensor contiguous)."""
+    a wider tensor contiguous); a broadcast (a stride 0) comes back dense."""
+    if 0 in x.stride():
+        return x.detach().contiguous()
     return x.new_empty_strided(x.shape, x.stride()).copy_(x.detach())
 
 
 @contextlib.contextmanager
-def recorded_attention(seen: list, kept: dict | None = None):
+def recorded_attention(seen: list, kept: dict | None = None, kept_bwd: dict | None = None):
     """Keeps the shape and strides of each flash_attention call's q, k and
     v in ``seen``; and in ``kept``, for each distinct shape, strides and
     keywords, copies of the first such call's q, k, v, keywords and output,
-    at their strides (hold_recorded holds them against the plain version)."""
+    at their strides (hold_recorded holds them against the plain version).
+    The backward's own calls (FlashAttention.backward, which runs
+    flash_attention_bwd) go into ``seen`` too, marked "bwd", and into
+    ``kept_bwd``: q, k, v, the output, its gradient, the log-sum-exp,
+    keywords and (dq, dk, dv)."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels.flash_attention import FlashAttention
 
-    saved = ops.flash_attention
+    saved, saved_bwd = ops.flash_attention, FlashAttention.backward
+
+    def key_of(q, k, v, kw, *more):
+        return (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(),
+                *(t.stride() for t in more), tuple(sorted(kw.items())))
 
     def rec(q, k, v, **kw):
         out = saved(q, k, v, **kw)
         seen.append({"q": (tuple(q.shape), q.stride()), "k": (tuple(k.shape), k.stride())})
-        key = (tuple(q.shape), q.stride(), tuple(k.shape), k.stride(), v.stride(),
-               tuple(sorted(kw.items())))
+        key = key_of(q, k, v, kw)
         if kept is not None and key not in kept:
             kept[key] = (*(strided_copy(t) for t in (q, k, v)), dict(kw), strided_copy(out))
         return out
-    ops.flash_attention = rec
+
+    def rec_bwd(ctx, dout):
+        grads = saved_bwd(ctx, dout)
+        q, k, v, out, lse = ctx.saved_tensors
+        seen.append({"bwd": True, "q": (tuple(q.shape), q.stride()),
+                     "k": (tuple(k.shape), k.stride())})
+        key = key_of(q, k, v, ctx.kw, dout)
+        if kept_bwd is not None and key not in kept_bwd:
+            kept_bwd[key] = (*(strided_copy(t) for t in (q, k, v, out, dout, lse)),
+                             dict(ctx.kw), tuple(strided_copy(g) for g in grads[:3]))
+        return grads
+    ops.flash_attention, FlashAttention.backward = rec, staticmethod(rec_bwd)
     try:
         yield
     finally:
-        ops.flash_attention = saved
+        ops.flash_attention, FlashAttention.backward = saved, staticmethod(saved_bwd)
 
 
 def hold_recorded(label: str, kept: dict) -> float:
@@ -2978,6 +3170,42 @@ def hold_recorded(label: str, kept: dict) -> float:
         print(f"{name}: the main path's output against the plain version"
               f"{f' in {chunks} batch chunks' if chunks > 1 else ''}, max abs err {err:.3e} "
               f"(rtol {rtol}, atol {atol:.2e} in the last)")
+    return worst
+
+
+def hold_recorded_bwd(label: str, kept_bwd: dict) -> float:
+    """Holds each backward call that recorded_attention kept, the kernel's
+    own (dq, dk, dv) on the main path, against flash_attention_bwd_plain on
+    the same inputs at their strides, at phase 9a's bound (check_bwd), in
+    chunks of batch rows whose plain f32 scores take at most
+    PLAIN_SCORE_BYTES. Returns the largest error."""
+    from repro_torch.kernels.flash_attention import flash_attention_bwd_plain
+
+    worst = 0.0
+    for (q, k, v, out, dout, lse, kw, grads) in kept_bwd.values():
+        B, H, S, hd = q.shape
+        L = k.shape[2]
+        name = (f"{label} flash_attention_bwd's call at q {tuple(q.shape)} strides {q.stride()}, "
+                f"k {tuple(k.shape)} strides {k.stride()}, dout strides {dout.stride()}, {kw}, "
+                f"{q.dtype}")
+        rows, errs = max(1, PLAIN_SCORE_BYTES // (4 * H * S * L)), [0.0, 0.0, 0.0]
+        refs = [[], [], []]
+        for b0 in range(0, B, rows):
+            sl = slice(b0, b0 + rows)
+            ref = flash_attention_bwd_plain(q[sl], k[sl], v[sl], out[sl], dout[sl], lse[sl], **kw)
+            for x, r in enumerate(ref):
+                refs[x].append(r)
+            del ref
+        for x, g in enumerate(("dq", "dk", "dv")):
+            ref = torch.cat(refs[x])
+            errs[x] = check_bwd(f"{name} {g}", grads[x], ref, q.dtype)
+        del refs, ref
+        worst = max(worst, *errs)
+        chunks = -(-B // rows)
+        print(f"{name}: the main path's gradients against the plain backward"
+              f"{f' in {chunks} batch chunks' if chunks > 1 else ''}, max abs err dq/dk/dv "
+              f"{errs[0]:.3e}/{errs[1]:.3e}/{errs[2]:.3e} (rtol {BWD_RTOL[q.dtype]}, atol "
+              f"{BWD_ATOL[q.dtype]} x max |plain|)")
     return worst
 
 
@@ -3221,6 +3449,22 @@ def phase_long_shapes(dev: torch.device, seed: int) -> dict:
 # cross keys and values over its 1024 frames.
 ENCDEC_SERVE_BATCH = 16
 ENCDEC_CUT_LAYERS = 2          # 2 encoder + 2 decoder layers
+# train_4k (14d): the reference's global batch of 256 in microbatches of 8,
+# a warm-up step and two more; the bf16 gradient held against f32 on a
+# 4 + 4-layer cut.
+ENCDEC_TRAIN_BATCH = 256
+ENCDEC_TRAIN_MICRO = 8
+ENCDEC_TRAIN_STEPS = 3
+ENCDEC_GRAD_LAYERS = 4
+# The 2 + 2-layer f32 cut's loss, card against CPU (14d): both f32 through
+# the same layers, the per-token NLLs summed over at most 4096 tokens a row.
+ENCDEC_F32_LOSS_RTOL = 1e-6
+# The train_4k row that cut is held on, cut to its first 1024 tokens (1040
+# positions against the 1024 frames, still S > L for the cross attention and
+# two 512-token loss chunks): the CPU's plain f32 versions take about 29 s
+# for the whole row, 14 of them the vocabulary's cross-entropy, 11 the
+# attention.
+ENCDEC_CPU_TOKENS = 1024
 
 
 def encdec_score_fn(model, task, tune_cfg, gen):
@@ -3340,10 +3584,155 @@ def encdec_depth_witness(model, tokens: torch.Tensor, frontend: torch.Tensor) ->
     return {"layer_gap_max": max(gaps), "layer_gaps": gaps, "logits_gap": rel}
 
 
-def encdec_cut_vs_cpu(cut_and_state, dev, gen) -> float:
+def grad_bf16_vs_f32(label: str, model, layers: int, prompt0: np.ndarray, batch: dict,
+                     chunked: bool) -> float:
+    """The prompt gradient of one batch on a ``layers``-layer cut of
+    ``model`` in bf16 against the same weights in f32, both on the card, by
+    relative norm, held at GRAD_BF16_REL_TOL."""
+    from repro_torch.models import Model
+
+    cut, cut_sd = cut_state(model, layers)
+    grads = {}
+    for dtype in ("bfloat16", "float32"):
+        m = Model(cut.with_overrides(dtype=dtype, param_dtype=dtype), device=model.device,
+                  seed=None)
+        m.load_state_dict(cut_sd)
+        _, grads[dtype] = prompt_loss_grad(m, prompt0, batch, chunked)
+        del m
+        free_card()
+    rel = rel_gap(grads["bfloat16"], grads["float32"])
+    print(f"{label}: prompt gradient on a {layers}-layer cut, ||bf16 - f32|| / ||f32|| = "
+          f"{rel:.3e} (tol {GRAD_BF16_REL_TOL})")
+    if not rel <= GRAD_BF16_REL_TOL:
+        raise AssertionError(f"{label}: the bf16 prompt gradient disagrees with f32")
+    return rel
+
+
+def encdec_tune(model, seed: int, gen) -> dict:
+    """14d: make_train_step at train_4k (ENCDEC_TRAIN_BATCH rows of 4096
+    tokens and 16 prompt positions, microbatches of ENCDEC_TRAIN_MICRO, each
+    batch carrying a seeded (rows, 1024, 1024) f32 frontend), then
+    PromptTuner.step at the service's tuning shape (batch 8 x 33 positions,
+    the same frontend shape). On both: flash_attention_bwd launched twice a
+    decoder layer and microbatch (self and cross attention), never for the
+    encoder (S = L = 1024: it sees no prompt and keeps no graph), no plain
+    version run; the backward's own calls of the first step held against
+    the plain backward; the first microbatch's prompt gradient in bf16
+    against f32 on a ENCDEC_GRAD_LAYERS-layer cut. Returns the batches the
+    2 + 2-layer f32 cut is held on against the CPU (a train_4k row's first
+    ENCDEC_CPU_TOKENS tokens with its whole frontend, the tuning batch), on
+    the CPU."""
+    from repro_torch.config import INPUT_SHAPES, TuneConfig
+    from repro_torch.data import LoaderConfig, TaskLoader
+    from repro_torch.launch import make_train_step
+    from repro_torch.models import prompt_from_arrays
+
+    cfg, dev = model.cfg, model.device
+    shape, tune_cfg = INPUT_SHAPES["train_4k"], TuneConfig()
+    P, S, B, micro = tune_cfg.prompt_len, shape.seq_len, ENCDEC_TRAIN_BATCH, ENCDEC_TRAIN_MICRO
+    V, frames, E = cfg.vocab_size, cfg.frontend.num_embeddings, cfg.frontend.embed_dim
+    per_mb = 2 * cfg.num_layers                         # self and cross, each decoder layer
+    rng = np.random.default_rng(seed + 14)
+    prompt0 = rng.normal(0, 0.5 / np.sqrt(cfg.d_model), (P, cfg.d_model)).astype(np.float32)
+
+    def frontend(rows: int) -> torch.Tensor:
+        return torch.randn(rows, frames, E, generator=gen, device=dev)
+
+    def no_encoder_backward(label: str, shapes: list) -> None:
+        if any(q[2] == frames and k[2] == frames for q, k in shapes):
+            raise AssertionError(f"{label}: flash_attention_bwd ran at the encoder's S = L = "
+                                 f"{frames}: {shapes}")
+
+    print(f"[14d] {shape.name}: {S} tokens + P={P} = {S + P} decoder positions a row against "
+          f"{frames} encoder rows; global batch {shape.global_batch} -> {B} in {B // micro} "
+          f"microbatches of {micro}, each batch with a seeded frontend {B} x {frames} x {E} f32")
+    batches = [{"tokens": torch.randint(3, V, (B, S), generator=gen, device=dev,
+                                        dtype=torch.int32),
+                "labels": torch.randint(0, V, (B, S), generator=gen, device=dev,
+                                        dtype=torch.int32),
+                "mask": torch.ones(B, S, device=dev), "frontend": frontend(B)}
+               for _ in range(ENCDEC_TRAIN_STEPS)]
+    step, opt = make_train_step(model, tune_cfg, microbatches=B // micro)
+    seen, kept_bwd = [], {}
+    t_tune = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats(dev)
+
+    def run():
+        cur, st, out = prompt_from_arrays({"soft_prompt": prompt0}, dev), None, []
+        st = opt.init(cur)
+        for i, b in enumerate(batches):
+            t = time.perf_counter()
+            with (recorded_attention(seen, None, kept_bwd) if i == 0 else contextlib.nullcontext()):
+                cur, st, loss = step(cur, st, b)
+                loss = float(loss)
+            out.append((loss, time.perf_counter() - t))
+        return cur, out
+
+    (pp, steps), launches = main_path(f"[14d] {len(batches)} make_train_step steps, batch {B}",
+                                      run)
+    peak = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    n_mb = len(batches) * (B // micro)
+    shapes = sorted({(c["q"][0], c["k"][0]) for c in seen if c.get("bwd")})
+    no_encoder_backward("[14d] train_4k", shapes)
+    step_s = [t for _, t in steps[1:]]
+    print(f"[14d] {len(batches)} steps (loss, s): {[(round(l, 6), round(t, 2)) for l, t in steps]}; "
+          f"after the warm-up {statistics.mean(step_s):.2f} s a step, "
+          f"{B * (S + P) / statistics.mean(step_s):.0f} positions/s; max_memory_allocated "
+          f"{peak:.2f} GiB; flash_attention_bwd launches {launches['flash_attention_bwd']} "
+          f"({per_mb} a microbatch expected), the first step's backward calls at (q, k) "
+          f"shapes {shapes}")
+    if (launches["flash_attention_bwd"] != per_mb * n_mb
+            or not np.isfinite([l for l, _ in steps]).all()
+            or not torch.isfinite(pp["soft_prompt"]).all()):
+        raise AssertionError(f"[14d] the train steps launched flash_attention_bwd "
+                             f"{launches['flash_attention_bwd']} times, not {per_mb} a "
+                             f"microbatch, or gave a non-finite loss or prompt: {steps}")
+    held = hold_recorded_bwd("[14d] train_4k", kept_bwd)
+    first = {k: v[:micro] for k, v in batches[0].items()}
+    train_row = {k: (v[:1] if k == "frontend" else v[:1, :ENCDEC_CPU_TOKENS]).cpu()
+                 for k, v in batches[0].items()}
+    del batches, kept_bwd, pp
+    free_card()
+    micro_profile = step_profile(
+        f"[14d] one train_4k microbatch's loss and prompt gradient (lpt_loss_chunked, as "
+        f"make_train_step takes it), {micro} x {S + P} positions",
+        lambda: prompt_loss_grad(model, prompt0, first, chunked=True), micro * (S + P),
+        warm=1, reps=2, traced=1)
+    grad_rel = {"train_4k": grad_bf16_vs_f32(f"[14d] train_4k, the first microbatch ({micro} x "
+                                             f"{S + P} positions)", model, ENCDEC_GRAD_LAYERS,
+                                             prompt0, first, chunked=True)}
+    del first
+    free_card()
+
+    # PromptTuner.step at the service's tuning shape, a frontend in each batch
+    loader = TaskLoader(synthetic_task(), LoaderConfig(batch_size=tune_cfg.batch_size, seed=seed))
+    tbatches = [{**next(loader), "frontend": frontend(tune_cfg.batch_size)}
+                for _ in range(TUNING_STEPS)]
+    tb, positions = tune_cfg.batch_size, P + tbatches[0]["tokens"].shape[1]
+    tuning = tuner_steps("[14d]", model, prompt0, tbatches, per_mb)
+    no_encoder_backward("[14d] tuning", tuning["bwd_shapes"])
+    grad_rel["tuning"] = grad_bf16_vs_f32(f"[14d] tuning batch ({tb} x {positions} positions)",
+                                          model, ENCDEC_GRAD_LAYERS, prompt0, tbatches[0],
+                                          chunked=False)
+    tune_batch = {k: torch.as_tensor(v).cpu() for k, v in tbatches[0].items()}
+    del tbatches
+    free_card()
+    print(f"[14d] tuning on the card: {time.perf_counter() - t_tune:.1f} s")
+    return {"launches": launches, "tune_launches": tuning["launches"], "steps": len(steps),
+            "tune_steps": len(tuning["losses"]), "step_s": step_s, "peak_gib": peak,
+            "held": max(held, tuning["held"]), "grad_rel": grad_rel,
+            "profile": tuning["profile"], "micro_profile": micro_profile, "prompt0": prompt0,
+            "train_row": train_row, "tune_batch": tune_batch}
+
+
+def encdec_cut_vs_cpu(cut_and_state, dev, gen, tune: dict) -> float:
     """14c: the 2 + 2-layer f32 cut, card against CPU, on the same seeded
     frontend and tokens: the Eqn-1 loss with the frontend in the batch, and
-    4 decode steps with each side's cross cache from its own encoder."""
+    4 decode steps with each side's cross cache from its own encoder. 14d:
+    the loss and prompt gradient of a train_4k row (its first
+    ENCDEC_CPU_TOKENS tokens) through make_train_step's chunked loss and of
+    the tuning batch through
+    PromptTuner's, at ENCDEC_F32_LOSS_RTOL and TUNE_F32_PROMPT_TOL."""
     from repro_torch.train.objectives import lpt_loss
 
     card, cpu = depth_cut(cut_and_state, dev)
@@ -3372,8 +3761,15 @@ def encdec_cut_vs_cpu(cut_and_state, dev, gen) -> float:
                                        g.cpu(), c, F32_LOGIT_TOL))
     print(f"[14c] the cut's 4 decode steps, card (kernels) against CPU (plain versions): max abs "
           f"logit diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    cut = f"[14d] {ENCDEC_CUT_LAYERS} + {ENCDEC_CUT_LAYERS}-layer f32 cut"
+    grads = {"train_4k": grad_card_vs_cpu(f"{cut}, a train_4k row's first {ENCDEC_CPU_TOKENS} "
+                                          "tokens, the chunked loss", card, cpu,
+                                          tune["prompt0"], tune["train_row"], ENCDEC_F32_LOSS_RTOL,
+                                          chunked=True),
+             "tuning": grad_card_vs_cpu(f"{cut}, the tuning batch, PromptTuner's loss", card, cpu,
+                                        tune["prompt0"], tune["tune_batch"], ENCDEC_F32_LOSS_RTOL)}
     del card, cpu
-    return max(rel, worst)
+    return max(rel, worst), grads
 
 
 def phase_encdec(dev: torch.device, seed: int) -> dict:
@@ -3490,10 +3886,13 @@ def phase_encdec(dev: torch.device, seed: int) -> dict:
     tokens = torch.randint(3, V, (2, 32), generator=gen, device=dev)
     witness = encdec_depth_witness(model, tokens,
                                    torch.randn(2, frames, E, generator=gen, device=dev))
+
+    # (d) prompt tuning: make_train_step at train_4k and PromptTuner.step
+    tune = encdec_tune(model, seed, gen)
     state = cut_state(model, ENCDEC_CUT_LAYERS)
     del model
     free_card()
-    cut_rel = encdec_cut_vs_cpu(state, dev, gen)
+    cut_rel, cut_grads = encdec_cut_vs_cpu(state, dev, gen, tune)
     free_card()
     wall = time.perf_counter() - t_phase
     print(f"[14] {cfg.name}: {wall:.1f} s")
@@ -3504,7 +3903,10 @@ def phase_encdec(dev: torch.device, seed: int) -> dict:
             "score_rows": score_rows, "worst": kern["worst"], "by_shape": look["by_shape"],
             "per_eval": look["per_eval"], "decode_launches": launches["flash_decode"],
             "profile": profile, "held_err": held_err, "witness": witness, "cut_rel": cut_rel,
-            "seconds": wall}
+            "tune": {k: tune[k] for k in ("launches", "tune_launches", "steps", "tune_steps",
+                                          "step_s", "peak_gib", "held", "grad_rel", "profile",
+                                          "micro_profile")},
+            "cut_grads": cut_grads, "seconds": wall}
 
 
 # -- phase 9 --------------------------------------------------------------------
@@ -3516,6 +3918,20 @@ def phase_encdec(dev: torch.device, seed: int) -> dict:
 # training shape of vicuna-7b (4112 positions, hd 128, MHA). Then the bf16
 # kernel's tile edges: S = L = 127, 128, 129 and 257 around its 128-row KV
 # tile, a GQA group of 7, and a window and kv_len that end inside a KV tile.
+# Then FA_BWD_NEW: head dim 112 (zamba2-7b, padded to 128 in the bf16
+# kernel) at its tuning shape, at 513 and 4112 positions and at the tile
+# edges, and seamless-m4t-medium's cross attention, not causal, S > L.
+FA_BWD_NEW = [
+    (8, 32, 32, 33, 33, 112, {}),                                # zamba2-7b tuning, batch 8
+    (1, 32, 32, 513, 513, 112, {}),
+    (1, 32, 32, 4112, 4112, 112, {}),
+    (1, 4, 4, 127, 127, 112, {}),
+    (1, 4, 4, 129, 129, 112, {}),
+    (1, 4, 4, 257, 257, 112, {}),
+    (1, 8, 2, 300, 300, 112, {"window": 100, "kv_len": 200}),
+    (2, 16, 16, 4112, 1024, 64, {"causal": False}),              # seamless train_4k, cross
+    (2, 16, 16, 33, 1000, 64, {"causal": False, "kv_len": 937}),
+]
 FA_BWD_CASES = [
     (2, 28, 4, 513, 513, 128, {}),
     (2, 12, 12, 513, 513, 64, {}),
@@ -3534,6 +3950,7 @@ FA_BWD_CASES = [
     (2, 14, 2, 129, 257, 128, {"q_offset": 128}),                 # GQA 7:1
     (1, 7, 1, 300, 300, 64, {"window": 100, "kv_len": 200}),
     (1, 4, 4, 129, 129, 128, {"causal": False, "kv_len": 100}),
+    *FA_BWD_NEW,
 ]
 # score_ce's backward checks: T, D, V. gpt2-base's tuning batch (8 rows of
 # 17 tokens) and T one past a 128-row tile; vicuna-7b's at a 512-position
@@ -3576,6 +3993,45 @@ def sce_bwd_bound(T: int, D: int, V: int, elt: int):
 
 def causal_pairs(S: int, L: int, q_offset: int = 0) -> int:
     return sum(min(L, q_offset + i + 1) for i in range(S))
+
+
+def fa_bwd_row(B: int, H: int, Hkv: int, S: int, L: int, hd: int, kw: dict, gen, dev) -> dict:
+    """flash_attention_bwd in bf16 timed beside its plain version, SDPA's
+    backward (the live keys as a boolean mask where a window or kv_len cuts
+    them; built once, ``retain_graph``) and the bound over this call's live
+    pairs."""
+    from repro_torch.kernels.flash_attention import (_live_mask, flash_attention,
+                                                     flash_attention_bwd,
+                                                     flash_attention_bwd_plain)
+
+    kw = {"causal": True, "window": 0, "q_offset": 0, "kv_len": None, **kw}
+    bf = torch.bfloat16
+    q, dout = (torch.randn(B, H, S, hd, generator=gen, device=dev).to(bf) for _ in range(2))
+    k, v = (torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(bf) for _ in range(2))
+    out, lse = flash_attention(q, k, v, return_lse=True, **kw)
+    live = _live_mask(S, L, device=dev, **kw)
+    pairs = int(live.sum().item())
+    b_ms, b_by = fa_bwd_bound(B, H, Hkv, S, L, hd, pairs, 2)
+    qg, kg, vg = (t.detach().requires_grad_(True) for t in (q, k, v))
+    plain_mask = kw["causal"] and S == L and not kw.get("window") and kw.get("kv_len") in (None, L)
+    sdpa_out = F.scaled_dot_product_attention(
+        qg, kg, vg, is_causal=plain_mask, attn_mask=None if plain_mask or live.all() else live,
+        enable_gqa=H != Hkv)
+    lib = lambda: torch.autograd.grad(sdpa_out, (qg, kg, vg), dout, retain_graph=True)  # noqa: E731
+    shape = (f"B={B} H={H} Hkv={Hkv} {f'S=L={S}' if S == L else f'S={S} L={L}'} hd={hd} "
+             f"{'causal' if kw['causal'] else 'not causal'}"
+             + "".join(f" {k_}={kw[k_]}" for k_ in ("window", "kv_len") if kw.get(k_))
+             + " bf16")
+    row = {"shape": shape,
+           "ms": time_ms(lambda: flash_attention_bwd(q, k, v, out, dout, lse, **kw)),
+           "plain_ms": time_ms(lambda: flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw),
+                               reps=5),
+           "library_ms": time_ms(lib), "bound_ms": b_ms, "bound_by": b_by}
+    print(f"[9a] flash_attention_bwd {shape}: kernel {row['ms']:.4f} ms, plain "
+          f"{row['plain_ms']:.4f} ms, library (SDPA backward"
+          f"{', boolean mask' if not (plain_mask or live.all()) else ''}) "
+          f"{row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by}, {pairs} live pairs a head)")
+    return row
 
 
 def phase_backward_kernels(dev: torch.device, seed: int) -> dict:
@@ -3752,7 +4208,9 @@ def backward_times(dev: torch.device, gen) -> dict:
         own_kernels("score_ce_bwd", kernel_launches(f"[9a] score_ce_bwd {label}",
                                                      lambda: score_ce_bwd(h, e, lab, lse, g)))
         del h, e, hg, nll
-    free_card()
+    for B, H, Hkv, S, L, hd, kw in FA_BWD_NEW:
+        rows["flash_attention_bwd"].append(fa_bwd_row(B, H, Hkv, S, L, hd, kw, gen, dev))
+        free_card()
     return {"rows": rows}
 
 
@@ -4302,16 +4760,25 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
              "score_ce_de": pre["worst"]}
     for name, err in encdec["worst"].items():
         worst[name] = max(worst[name], err)
+    worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], hybrid["bwd_held"],
+                                       encdec["tune"]["held"])
     path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
     rwkv_tune = f"rwkv6-7b, tune ({rtune['iters']} iterations, 1 evaluation)"
     pretraining = f"gpt2-base, pretrain ({pre['steps']} steps)"
+    etune = encdec["tune"]
     tuning = lambda name: {
         k: n for k, n in (("gpt2-base, tune (40 iterations, 4 evaluations)",
                            tune["launches"].get(name)),
                           (f"vicuna-7b, train_4k (3 steps, batch {train['batch']})",
                            train["launches"].get(name)),
                           (rwkv_tune, rtune["launches"].get(name)),
-                          (pretraining, pre["launches"].get(name))) if n is not None}
+                          (pretraining, pre["launches"].get(name)),
+                          (f"zamba2-7b, PromptTuner.step ({hybrid['tune_steps']} steps, batch 8)",
+                           hybrid["tune_launches"].get(name)),
+                          (f"seamless-m4t-medium, train_4k ({etune['steps']} steps, batch "
+                           f"{ENCDEC_TRAIN_BATCH})", etune["launches"].get(name)),
+                          (f"seamless-m4t-medium, PromptTuner.step ({etune['tune_steps']} steps, "
+                           "batch 8)", etune["tune_launches"].get(name))) if n is not None}
     svc = lambda name: service["by_label"].get(name, {})
     prefill = shapes["prefill"]
     prefill_path = f"qwen2-7b, prefill_32k (1 step, batch {PREFILL_BATCH})"

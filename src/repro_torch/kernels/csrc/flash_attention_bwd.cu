@@ -62,10 +62,18 @@
 //        it changes from run to run by f32 rounding, where dK and dV do not.
 //      This removes the second kernel of the mma.sync design and its second
 //      S and dP: 10·hd operations a live pair and head instead of 14·hd.
-//      Shared memory: hd 128 165,928 B, hd 64 100,392 B (one block an SM:
+//      Shared memory: hd 112 and 128 165,928 B, hd 64 100,392 B (one block an SM:
 //      384 threads at 168 registers on entry fill the register file).
 //   3. fa_bwd_dq_out: the scratch (register order) times scale into dq's dtype
 //      and strides.
+// Head dim 112 (zamba2-7b's shared attention) runs the hd-128 code on a tile
+// padded to 128 columns in shared memory: the tensor maps end at column 112,
+// so TMA fills columns 112-127 of Q, K, V and dO's second 64-column block
+// with zeros. Sᵀ and dPᵀ take only the 7 k-steps of 16 that hold data; dV,
+// dK and dQ are computed 128 wide (their columns 112-127 come out 0) and
+// those columns are never stored. The dQ scratch rows are 128 floats wide
+// (Smem<HD>::HP), not HD. A native 112-wide product (wgmma n = 112) would
+// save the padded eighth of dV, dK and dQ's products.
 // f32: three kernels on the CUDA cores, none with atomics (deterministic):
 // fa_bwd_delta (D), fa_bwd_dkdv_f32 (a block per 32-row KV tile over its KV
 // head's query heads) and fa_bwd_dq_f32 (a block per 32-row query tile);
@@ -151,13 +159,15 @@ enum : int { kBarDs = 1, kBarWg = 2 };  // named barriers: both consumers; kBarW
 // Shared memory of fa_bwd_bf16, in bytes from a 1024-aligned base: K, V, the
 // ring's stages (Q then dO), two dSᵀ buffers (128 KV rows × 64 queries), the
 // stages' lse and D, mbarriers.
-// A tile of HD columns is HD / 64 column blocks of 128-byte rows.
+// A tile of HD columns is HP / 64 column blocks of 128-byte rows, HP = HD
+// rounded up to 64 (112 -> 128: the last 16 columns TMA's zeros).
 template <int HD>
 struct Smem {
+  static constexpr int HP = (HD + 63) / 64 * 64;    // padded head dim
   static constexpr int KV_BLOCK = kBc * 128;         // one column block of K or V
   static constexpr int Q_BLOCK = kBr * 128;          // one column block of Q or dO
-  static constexpr int KV_BYTES = HD / 64 * KV_BLOCK;
-  static constexpr int Q_BYTES = HD / 64 * Q_BLOCK;
+  static constexpr int KV_BYTES = HP / 64 * KV_BLOCK;
+  static constexpr int Q_BYTES = HP / 64 * Q_BLOCK;
   static constexpr int DS_BYTES = kBc * 128;
   static constexpr int K = 0, V = KV_BYTES, RING = 2 * KV_BYTES;
   static constexpr int DS = RING + kStages * 2 * Q_BYTES;
@@ -175,7 +185,7 @@ __device__ __forceinline__ bool all_live(const Mask& m, int i0, int j0) {
 }
 
 // One warp per padded query row: D (0 past S), the log-sum-exp in log2 units
-// (0 past S: those rows are masked) and the row's HD floats of the dQ
+// (0 past S: those rows are masked) and the row's HP floats of the dQ
 // scratch set to 0.
 template <int HD>
 __global__ void fa_bwd_prep(const __nv_bfloat16* __restrict__ o,
@@ -205,8 +215,9 @@ __global__ void fa_bwd_prep(const __nv_bfloat16* __restrict__ o,
     dl[row] = acc;
     lse2[row] = i < S ? lse[bh * S + i] * kLog2e : 0.f;
   }
-  if (4 * lane < HD)
-    reinterpret_cast<float4*>(dq_acc + row * HD)[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
+  constexpr int HP = Smem<HD>::HP;
+  if (4 * lane < HP)
+    reinterpret_cast<float4*>(dq_acc + row * HP)[lane] = make_float4(0.f, 0.f, 0.f, 0.f);
 }
 
 // One thread of the producer warpgroup: K and V once, then the block's query
@@ -219,9 +230,9 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* full, uint64_t*
                                         const float* dl, int hk, int b, int j0, int G,
                                         int i_begin, int n_qt, int n_it, int H, int S_pad) {
   using Sm = Smem<HD>;
-  mbar_expect_tx(kvbar, 2 * Sm::KV_BYTES);
+  mbar_expect_tx(kvbar, 2 * Sm::KV_BYTES);   // a box past column HD counts whole
 #pragma unroll
-  for (int cb = 0; cb < HD / 64; ++cb) {
+  for (int cb = 0; cb < Sm::HP / 64; ++cb) {
     tma_load_4d(smem + Sm::K + cb * Sm::KV_BLOCK, tm_k, kvbar, 64 * cb, j0, hk, b);
     tma_load_4d(smem + Sm::V + cb * Sm::KV_BLOCK, tm_v, kvbar, 64 * cb, j0, hk, b);
   }
@@ -233,7 +244,7 @@ __device__ __forceinline__ void produce(uint8_t* smem, uint64_t* full, uint64_t*
     mbar_expect_tx(&full[stage], 2 * Sm::Q_BYTES + 2 * kBr * 4);
     uint8_t* qs = smem + Sm::RING + stage * 2 * Sm::Q_BYTES;
 #pragma unroll
-    for (int cb = 0; cb < HD / 64; ++cb) {
+    for (int cb = 0; cb < Sm::HP / 64; ++cb) {
       tma_load_4d(qs + cb * Sm::Q_BLOCK, tm_q, &full[stage], 64 * cb, i0, h, b);
       tma_load_4d(qs + Sm::Q_BYTES + cb * Sm::Q_BLOCK, tm_do, &full[stage], 64 * cb, i0, h, b);
     }
@@ -266,7 +277,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full, uint64_t*
                                         int n_qt, int n_it, int H, int L, int S_pad, Mask m,
                                         float scale, float c) {
   using Sm = Smem<HD>;
-  constexpr int NO = HD / 2;                 // accumulator floats of a 64 × HD product
+  constexpr int HP = Sm::HP;
+  constexpr int NO = HP / 2;                 // accumulator floats of a 64 × HP product
   const int tid = threadIdx.x & 127, warp = tid >> 5, lane = threadIdx.x & 31;
   const int g = lane >> 2, t = lane & 3;
   const int jw0 = j0 + 64 * wg;              // this warpgroup's first KV row
@@ -288,7 +300,8 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full, uint64_t*
     const float* lse_s = ld_all + stage * 2 * kBr;
     const float* dl_s = lse_s + kBr;
 
-    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warpgroup's 64 KV rows × the tile's 64 queries
+    // Sᵀ = K·Qᵀ and dPᵀ = V·dOᵀ: this warpgroup's 64 KV rows × the tile's 64
+    // queries, over the HD / 16 k-steps that hold data
     float s[32], dp[32];
     wgmma_fence();
 #pragma unroll
@@ -375,7 +388,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full, uint64_t*
     // this warpgroup's share of dQ_tile = dS·K (A = dSᵀ read MN-major)
     float dq[32];
     const uint32_t dsa = smem_u32(dsb);
-    if constexpr (HD == 128) {   // columns [64·wg, +64) over all 128 KV rows
+    if constexpr (HP == 128) {   // columns [64·wg, +64) over all 128 KV rows
       bar_sync(kBarDs, 256);
       wgmma_fence();
 #pragma unroll
@@ -406,7 +419,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full, uint64_t*
     // 512 bytes side by side
     {
       float4* dst = reinterpret_cast<float4*>(
-          dq_acc + (((long long)b * H + h) * S_pad + i0) * HD + (HD == 128 ? 64 * 64 * wg : 0));
+          dq_acc + (((long long)b * H + h) * S_pad + i0) * HP + (HP == 128 ? 64 * 64 * wg : 0));
 #pragma unroll
       for (int x = 0; x < 8; ++x)
         atomicAdd(dst + x * 128 + tid,
@@ -418,7 +431,7 @@ __device__ __forceinline__ void consume(uint8_t* smem, uint64_t* full, uint64_t*
   __nv_bfloat16* dkb = dk + b * sdk.b + hk * sdk.h;
   __nv_bfloat16* dvb = dv + b * sdv.b + hk * sdv.h;
 #pragma unroll
-  for (int n = 0; n < HD / 8; ++n) {
+  for (int n = 0; n < HD / 8; ++n) {         // columns past HD (all 0) are not stored
     const int d = 8 * n + 2 * t;
     if (ja < L) {
       *reinterpret_cast<__nv_bfloat162*>(dkb + ja * sdk.s + d) =
@@ -483,27 +496,30 @@ fa_bwd_bf16(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CU
 }
 
 // dq = scale · the f32 scratch. Per (batch row, head, 64-row query tile) it
-// holds HD / 64 shares of 64 × 64 (hd 128: columns [64w, +64); hd 64: one),
-// each in register order: float4 x of consumer thread tid = 32·warp + 4g + t
-// at (x · 128 + tid) · 4 holds rows 16·warp + g and + 8, columns 8x + 2t and
-// + 1 of the share. One thread per float4, read side by side.
+// holds HP / 64 shares of 64 × 64 (hd 112 and 128: columns [64w, +64); hd
+// 64: one), each in register order: float4 x of consumer thread tid =
+// 32·warp + 4g + t at (x · 128 + tid) · 4 holds rows 16·warp + g and + 8,
+// columns 8x + 2t and + 1 of the share. One thread per float4, read side by
+// side; columns past HD are skipped.
 template <int HD>
 __global__ void fa_bwd_dq_out(const float* __restrict__ dq_acc, __nv_bfloat16* __restrict__ dq,
                               Strides sdq, int H, int S, int S_pad, float scale,
                               long long n_vec) {
+  constexpr int HP = Smem<HD>::HP;
   const long long idx = (long long)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= n_vec) return;
   const int tid = (int)(idx % 128), x = (int)((idx / 128) % 8);
   const long long share = idx / 1024;              // (bh, tile, w), w fastest
-  const int w = (int)(share % (HD / 64));
-  const long long tile = share / (HD / 64);
+  const int w = (int)(share % (HP / 64));
+  const long long tile = share / (HP / 64);
   const int tiles = S_pad / 64;
   const int i = (int)(tile % tiles) * 64 + 16 * (tid >> 5) + ((tid & 31) >> 2);
-  if (i >= S) return;
+  const int col = 64 * w + 8 * x + 2 * (tid & 3);
+  if (i >= S || col >= HD) return;
   const long long bh = tile / tiles;
   const int h = (int)(bh % H), b = (int)(bh / H);
   const float4 v = reinterpret_cast<const float4*>(dq_acc)[idx];
-  __nv_bfloat16* out = dq + b * sdq.b + h * sdq.h + 64 * w + 8 * x + 2 * (tid & 3);
+  __nv_bfloat16* out = dq + b * sdq.b + h * sdq.h + col;
   *reinterpret_cast<__nv_bfloat162*>(out + i * sdq.s) =
       __floats2bfloat162_rn(v.x * scale, v.y * scale);
   if (i + 8 < S)
@@ -727,7 +743,7 @@ int launch_bf16(const void* q, const void* k, const void* v, const void* o, cons
       static_cast<T*>(dv), st[5], st[6], H, Hkv, L, S_pad, m, scale, scale * kLog2e);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
-  const long long n_vec = n_rows * HD / 4;
+  const long long n_vec = n_rows * Smem<HD>::HP / 4;
   fa_bwd_dq_out<HD><<<(unsigned)((n_vec + 255) / 256), 256, 0, stream>>>(
       dq_acc, static_cast<T*>(dq), st[4], H, S, S_pad, scale, n_vec);
   return (int)cudaGetLastError();
@@ -768,9 +784,9 @@ int launch_f32(const void* q, const void* k, const void* v, const void* o, const
 
 // q, o, dout, dq: (B, H, S, hd); k, v, dk, dv: (B, Hkv, L, hd), each given by
 // its (b, h, s) strides in elements with hd contiguous; lse (the forward's)
-// (B, H, S) f32 contiguous. work is f32 scratch: bf16 B·H·S_pad·(2 + hd)
-// floats (S_pad = S rounded up to 64: the log-sum-exp in log2 units, D, the
-// dQ sums), f32 B·H·S (D). dk and dv are written whole (zero where no query
+// (B, H, S) f32 contiguous. work is f32 scratch: bf16 B·H·S_pad·(2 + hp)
+// floats (S_pad = S rounded up to 64, hp = hd rounded up to 64: the
+// log-sum-exp in log2 units, D, the dQ sums), f32 B·H·S (D). dk and dv are written whole (zero where no query
 // sees a row). Returns cudaGetLastError() after the launches (0 on success),
 // or cudaErrorInvalidValue for a head dim without a template or tensor maps
 // that cannot be made.
@@ -784,7 +800,7 @@ extern "C" int flash_attention_bwd_launch(
     long long dv_h, long long dv_s, int B, int H, int Hkv, int S, int L, int kv_len,
     int q_offset, int causal, int window, int head_dim, int is_bf16, float scale,
     void* stream) {
-  if (head_dim != 64 && head_dim != 128) return (int)cudaErrorInvalidValue;
+  if (head_dim != 64 && head_dim != 112 && head_dim != 128) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const Strides so = {o_b, o_h, o_s};
   const Strides st[7] = {{q_b, q_h, q_s}, {k_b, k_h, k_s}, {v_b, v_h, v_s}, {do_b, do_h, do_s},
@@ -792,15 +808,13 @@ extern "C" int flash_attention_bwd_launch(
   const Mask m = {S, kv_len < L ? kv_len : L, q_offset, causal, window};
   const float* lz = static_cast<const float*>(lse);
   float* w = static_cast<float*>(work);
-  if (is_bf16)
-    return head_dim == 64
-               ? launch_bf16<64>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L, m,
-                                 scale, s)
-               : launch_bf16<128>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L,
-                                  m, scale, s);
-  return head_dim == 64
-             ? launch_f32<64>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L, m,
-                              scale, s)
-             : launch_f32<128>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L, m,
-                               scale, s);
+#define FA_BWD_LAUNCH(HD)                                                                  \
+  (is_bf16 ? launch_bf16<HD>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L, m, \
+                             scale, s)                                                       \
+           : launch_f32<HD>(q, k, v, o, dout, lz, w, dq, dk, dv, st, so, B, H, Hkv, S, L, m,  \
+                            scale, s))
+  if (head_dim == 64) return FA_BWD_LAUNCH(64);
+  if (head_dim == 112) return FA_BWD_LAUNCH(112);
+  return FA_BWD_LAUNCH(128);
+#undef FA_BWD_LAUNCH
 }

@@ -32,8 +32,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 112, 128)   # head dims the CUDA forward kernel is instantiated for
-BWD_HEAD_DIMS = (64, 128)    # ... and the backward kernels: 112 comes with zamba2's tuning
+HEAD_DIMS = (64, 112, 128)   # head dims the CUDA forward and backward kernels are built for
 
 
 def _live_mask(S: int, L: int, *, causal: bool, window: int, q_offset: int,
@@ -121,10 +120,8 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, *others,
-           head_dims: Tuple[int, ...] = HEAD_DIMS) -> None:
-    """What the CUDA kernels take: shapes, head dims (``head_dims``),
-    dtypes and strides."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, *others) -> None:
+    """What the CUDA kernels take: shapes, head dims, dtypes and strides."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: expects q (B,H,S,hd), k/v (B,Hkv,L,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -133,9 +130,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, *others
     if k.shape[0] != B or k.shape[3] != hd or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head dim, or H % Hkv != 0")
-    if hd not in head_dims:
+    if hd not in HEAD_DIMS:
         raise ValueError(f"{name}: head_dim={hd} has no CUDA kernel; "
-                         f"supported: {head_dims}")
+                         f"supported: {HEAD_DIMS}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype, float32 "
@@ -202,15 +199,25 @@ flash_attention.launches = 0
 
 
 # Query rows of one step of the bf16 backward (csrc/flash_attention_bwd.cu):
-# its f32 scratch is padded to a multiple of it.
+# its f32 scratch is padded to a multiple of it. Its tiles are whole 64-column
+# blocks: head dim 112 runs padded to 128.
 BWD_QUERY_TILE = 64
+BWD_COLUMN_BLOCK = 64
+
+
+def bwd_padded_head_dim(hd: int) -> int:
+    """The bf16 backward's tile width for head dim ``hd``: ``hd`` rounded up
+    to whole 64-column blocks (112 -> 128)."""
+    return -(-hd // BWD_COLUMN_BLOCK) * BWD_COLUMN_BLOCK
 
 
 def bwd_work_floats(B: int, H: int, S: int, hd: int, dtype: torch.dtype) -> int:
     """f32 scratch of one backward call: bf16 keeps each padded query row's
-    log-sum-exp (log2 units), D and its f32 dQ sums; f32 keeps D."""
+    log-sum-exp (log2 units), D and its f32 dQ sums at the padded width;
+    f32 keeps D."""
     if dtype == torch.bfloat16:
-        return B * H * (-(-S // BWD_QUERY_TILE) * BWD_QUERY_TILE) * (2 + hd)
+        return (B * H * (-(-S // BWD_QUERY_TILE) * BWD_QUERY_TILE)
+                * (2 + bwd_padded_head_dim(hd)))
     return B * H * S
 
 
@@ -224,20 +231,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     CPU tensors. dq has q's shape, dk and dv k's; all contiguous. In bf16 dq
     is summed over KV tiles by atomic adds, in an order that changes from
     run to run (f32 rounding); dk, dv and the f32 path are deterministic.
-    On CUDA a head dim the forward takes but the backward does not (112)
-    raises ``NotImplementedError`` before any launch."""
+    On CUDA a head dim with no kernel raises ``ValueError`` before any
+    launch."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     if _build.device_kind(q, k, v, out, dout, lse) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
-    hd = q.shape[-1]
-    if hd in HEAD_DIMS and hd not in BWD_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention_bwd: head_dim={hd} has a forward kernel but no backward kernel "
-            f"yet (backward: {BWD_HEAD_DIMS}); it comes with the zamba2-7b tuning slice")
     vec = 16 // q.element_size()
     if dout.stride(-1) != 1 or any(s % vec for s in dout.stride()[:3]):
         dout = dout.contiguous()
-    _check(q, k, v, "flash_attention_bwd", out, dout, head_dims=BWD_HEAD_DIMS)
+    _check(q, k, v, "flash_attention_bwd", out, dout)
     B, H, S, hd = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():

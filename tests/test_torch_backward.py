@@ -97,6 +97,12 @@ FLASH_BWD_CASES = [  # B, H, Hkv, S, L, hd, kwargs; every row keeps a live colum
     (2, 4, 1, 20, 48, 64, {"causal": True, "q_offset": 20, "window": 16, "kv_len": 38}),
     (1, 4, 2, 12, 40, 64, {"causal": False, "kv_len": 29}),
     (2, 8, 2, 33, 33, 128, {"causal": True, "window": 9}),
+    # head dim 112 (zamba2-7b's shared attention)
+    (1, 4, 2, 30, 30, 112, {"causal": True, "window": 6, "kv_len": 27}),
+    (1, 2, 2, 40, 24, 112, {"causal": False, "kv_len": 20}),
+    # not causal with S > L (seamless-m4t-medium's cross attention: the
+    # decoder's queries against the encoder's rows)
+    (1, 4, 2, 33, 20, 64, {"causal": False, "kv_len": 13}),
 ]
 
 

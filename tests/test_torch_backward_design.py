@@ -10,7 +10,10 @@ here in torch and held against ``flash_attention_bwd_plain`` /
   the query tiles of 64 that the kernel's ``query_range`` lets see its KV
   tile; the mask applied only where the kernel's ``all_live`` says a 64 × 64
   tile needs it; P = exp2(s·scale·log2 e − lse·log2 e); P and dS rounded to
-  bf16 before dV, dK and dQ; dQ summed in f32 over the KV tiles.
+  bf16 before dV, dK and dQ; dQ summed in f32 over the KV tiles, in the
+  kernel's 64-column shares. Head dim 112 runs padded to 128 with zero
+  columns, which must stay 0; the padded design is also held in float64
+  against autograd of float64 attention (1e-10).
 - ``sce_bwd_mirror``: ``csrc/score_ce.cu``'s backward. G = g·(softmax −
   onehot) per vocabulary chunk (``bwd_chunk``), rounded to bf16; each chunk's
   G·E split over the vocabulary as the kernel divides it (``ge_splits``
@@ -33,8 +36,8 @@ import torch
 
 from repro.kernels.ref import flash_attention_ref, score_ce_ref
 from repro_torch.kernels import score_ce as sc
-from repro_torch.kernels.flash_attention import (BWD_QUERY_TILE, bwd_work_floats,
-                                                 flash_attention_bwd_plain,
+from repro_torch.kernels.flash_attention import (BWD_QUERY_TILE, bwd_padded_head_dim,
+                                                 bwd_work_floats, flash_attention_bwd_plain,
                                                  flash_attention_plain)
 from repro_torch.kernels.score_ce import (GE_K_TILE, GE_PART_BYTES, GE_TILE, bwd_chunk,
                                           ge_splits, num_splits, score_ce_bwd_plain,
@@ -79,31 +82,41 @@ def all_live(S, kv_live, q_offset, causal, window, i0, j0):
 
 
 def fa_bwd_mirror(q, k, v, out, dout, lse, *, causal=True, window=0, q_offset=0, kv_len=None,
-                  bf16=True):
-    """(dq, dk, dv) as the bf16 kernel computes them, in f32 (see the module
-    note); ``bf16`` False skips the roundings of P and dS."""
+                  bf16=True, acc=torch.float32):
+    """(dq, dk, dv) as the bf16 kernel computes them, in ``acc`` (see the
+    module note); ``bf16`` False skips the roundings of P and dS.
+
+    The tiles are whole 64-column blocks, hd padded to HP (112 -> 128) with
+    the zeros TMA fills past the tensor maps' last column: Sᵀ and dPᵀ over
+    the hd / 16 k-steps that hold data, dV and dK HP wide, and dQ in the
+    kernel's shares (HP 128: columns [64w, +64) over the tile's 128 KV rows;
+    HP 64: each warpgroup's 64 rows) summed into an HP-wide scratch. The
+    padded columns must come out exactly 0; they are never stored."""
     B, H, S, hd = q.shape
     Hkv, L = k.shape[1], k.shape[2]
+    HP = bwd_padded_head_dim(hd)
     G, scale = H // Hkv, hd ** -0.5
     kv_live = L if kv_len is None else min(int(kv_len), L)
-    qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
-    delta = (dof * out.float()).sum(-1)
-    l2 = lse.float() * LOG2E
-    dq = torch.zeros(B, H, S, hd)
-    dk, dv = torch.zeros(B, Hkv, L, hd), torch.zeros(B, Hkv, L, hd)
+    pad = lambda t: torch.nn.functional.pad(t.to(acc), (0, HP - hd))   # noqa: E731
+    qf, kf, vf, dof = (pad(t) for t in (q, k, v, dout))
+    delta = (dout.to(acc) * out.to(acc)).sum(-1)
+    l2 = lse.to(acc) * LOG2E
+    dq = torch.zeros(B, H, S, HP, dtype=acc)
+    dk, dv = torch.zeros(B, Hkv, L, HP, dtype=acc), torch.zeros(B, Hkv, L, HP, dtype=acc)
     for j0 in range(0, L, KV_TILE):
         i_begin, i_end = query_range(S, kv_live, q_offset, causal, window, j0)
-        for jw0 in (j0, j0 + HALF):
-            if jw0 >= L:
-                continue
-            rows = slice(jw0, min(jw0 + HALF, L))
-            j = torch.arange(rows.start, rows.stop)
-            for h in range(H):
-                hk = h // G
-                for i0 in range(i_begin, i_end, Q_TILE):
-                    qs = slice(i0, min(i0 + Q_TILE, S))
-                    i = torch.arange(qs.start, qs.stop)
-                    s = qf[:, h, qs] @ kf[:, hk, rows].transpose(-1, -2)
+        for h in range(H):
+            hk = h // G
+            for i0 in range(i_begin, i_end, Q_TILE):
+                qs = slice(i0, min(i0 + Q_TILE, S))
+                i = torch.arange(qs.start, qs.stop)
+                ds_tile = torch.zeros(B, qs.stop - qs.start, KV_TILE, dtype=acc)
+                for jw0 in (j0, j0 + HALF):             # the two consumer warpgroups
+                    if jw0 >= L:
+                        continue
+                    rows = slice(jw0, min(jw0 + HALF, L))
+                    j = torch.arange(rows.start, rows.stop)
+                    s = qf[:, h, qs, :hd] @ kf[:, hk, rows, :hd].transpose(-1, -2)
                     p = torch.exp2(s * (scale * LOG2E) - l2[:, h, qs, None])
                     if not all_live(S, kv_live, q_offset, causal, window, i0, jw0):
                         live = (j[None, :] < kv_live).expand(len(i), len(j))
@@ -111,14 +124,26 @@ def fa_bwd_mirror(q, k, v, out, dout, lse, *, causal=True, window=0, q_offset=0,
                             live = live & (j[None, :] <= q_offset + i[:, None])
                         if window > 0:
                             live = live & (j[None, :] > q_offset + i[:, None] - window)
-                        p = torch.where(live, p, torch.zeros(()))
-                    dp = dof[:, h, qs] @ vf[:, hk, rows].transpose(-1, -2)
+                        p = torch.where(live, p, torch.zeros((), dtype=acc))
+                    dp = dof[:, h, qs, :hd] @ vf[:, hk, rows, :hd].transpose(-1, -2)
                     ds = p * (dp - delta[:, h, qs, None])
                     pb, dsb = _round(p, bf16), _round(ds, bf16)
                     dv[:, hk, rows] += pb.transpose(-1, -2) @ dof[:, h, qs]
                     dk[:, hk, rows] += dsb.transpose(-1, -2) @ qf[:, h, qs]
-                    dq[:, h, qs] += dsb @ kf[:, hk, rows]
-    return (dq * scale).to(q.dtype), (dk * scale).to(k.dtype), dv.to(v.dtype)
+                    ds_tile[:, :, jw0 - j0:jw0 - j0 + rows.stop - rows.start] = dsb
+                    if HP == 64:                        # each warpgroup over its own rows
+                        dq[:, h, qs] += dsb @ kf[:, hk, rows]
+                if HP == 128:                           # share w: columns [64w, +64), 128 rows
+                    krows = kf[:, hk, j0:j0 + KV_TILE]
+                    n = krows.shape[1]
+                    for w in range(2):
+                        cols = slice(64 * w, 64 * w + 64)
+                        dq[:, h, qs, cols] += ds_tile[:, :, :n] @ krows[:, :, cols]
+    for g in (dq, dk, dv):
+        assert (g[..., hd:] == 0).all(), "a padded column got a value"
+    dq, dk, dv = dq[..., :hd] * scale, dk[..., :hd] * scale, dv[..., :hd]
+    return tuple(g.to(t.dtype if acc == torch.float32 else acc)
+                 for g, t in zip((dq, dk, dv), (q, k, v)))
 
 
 FA_CASES = [  # B, H, Hkv, S, L, hd, kwargs, every row live (so JAX's reference applies)
@@ -132,6 +157,8 @@ FA_CASES = [  # B, H, Hkv, S, L, hd, kwargs, every row live (so JAX's reference 
     (2, 2, 1, 150, 150, 64, {"window": 70}, True),
     (1, 2, 2, 129, 257, 128, {"causal": False, "kv_len": 100}, True),
     (1, 2, 1, 20, 20, 64, {"window": 4, "kv_len": 10}, False),            # rows 13-19: nothing live
+    (1, 2, 2, 129, 129, 112, {}, True),                                   # hd 112, padded to 128
+    (1, 4, 1, 140, 70, 112, {"causal": False, "kv_len": 60}, True),
 ]
 
 
@@ -187,12 +214,50 @@ def test_fa_bwd_query_ranges_cover_every_live_pair():
                         assert pair, (S, L, kw, i, j)
 
 
-@pytest.mark.parametrize("S,hd", [(1, 64), (64, 128), (65, 64), (4112, 128)])
-def test_fa_bwd_work_is_padded_to_query_tiles(S, hd):
+def _dense_f64(q, k, v, *, causal=True, window=0, q_offset=0, kv_len=None):
+    """Attention written out in float64, GQA by repeating K and V."""
+    B, H, S, hd = q.shape
+    Hkv, L = k.shape[1], k.shape[2]
+    k, v = (t.repeat_interleave(H // Hkv, dim=1) for t in (k, v))
+    i, j = torch.arange(S)[:, None] + q_offset, torch.arange(L)[None, :]
+    live = j < (L if kv_len is None else kv_len)
+    if causal:
+        live = live & (j <= i)
+    if window > 0:
+        live = live & (j > i - window)
+    s = (q @ k.transpose(-1, -2)) * hd ** -0.5
+    s = s.masked_fill(~live, -1e30)
+    return torch.softmax(s, -1) @ v, torch.logsumexp(s, -1)
+
+
+@pytest.mark.parametrize("B,H,Hkv,S,L,hd,kw,all_rows_live",
+                         [c for c in FA_CASES if c[-1] and c[5] != 128][:3] +
+                         [c for c in FA_CASES if c[5] == 112])
+def test_fa_bwd_mirror_padded_design_holds_float64(B, H, Hkv, S, L, hd, kw, all_rows_live):
+    """The padded design's arithmetic without roundings, in float64, against
+    autograd of float64 attention: the zero columns change neither S nor dP,
+    the 64-column dQ shares sum to dS·K, and the padded columns stay 0."""
+    kw = {"causal": True, **kw}
+    q, k, v, do = (t.double() for t in _fa_inputs(B, H, Hkv, S, L, hd, S * L + hd + H))
+    q, k, v = (t.requires_grad_(True) for t in (q, k, v))
+    out, lse = _dense_f64(q, k, v, **kw)
+    refs = torch.autograd.grad(out, (q, k, v), do)
+    got = fa_bwd_mirror(q.detach(), k.detach(), v.detach(), out.detach(), do, lse.detach(),
+                        bf16=False, acc=torch.float64, **kw)
+    for g, r in zip(got, refs):
+        assert g.dtype == torch.float64
+        np.testing.assert_allclose(g.numpy(), r.numpy(), rtol=1e-10, atol=1e-10)
+
+
+@pytest.mark.parametrize("S,hd,hp", [(1, 64, 64), (64, 128, 128), (65, 64, 64),
+                                     (4112, 128, 128), (33, 112, 128)])
+def test_fa_bwd_work_is_padded_to_query_tiles(S, hd, hp):
     """The bf16 scratch holds lse, D and an f32 dQ row per query row padded to
-    a whole 64-row tile; f32 holds D alone."""
+    a whole 64-row tile, each dQ row at the padded head dim (112 -> 128); f32
+    holds D alone."""
     pad = -(-S // Q_TILE) * Q_TILE
-    assert bwd_work_floats(2, 3, S, hd, torch.bfloat16) == 2 * 3 * pad * (2 + hd)
+    assert bwd_padded_head_dim(hd) == hp
+    assert bwd_work_floats(2, 3, S, hd, torch.bfloat16) == 2 * 3 * pad * (2 + hp)
     assert bwd_work_floats(2, 3, S, hd, torch.float32) == 2 * 3 * S
 
 

@@ -11,6 +11,11 @@ in f32, on inputs drawn from a numpy seed:
   ``backbone`` and ``forward`` on a seeded frontend, ``lpt_loss`` and
   ``lpt_loss_chunked`` with the frontend in the batch, and
   ``activation_features`` (the reference's all-zero frontend);
+- the prompt's loss and gradient of a ``PromptTuner.step`` and of a
+  ``make_train_step`` with 2 microbatches (each splitting the frontend)
+  against ``jax.value_and_grad`` of the reference's ``lpt_loss`` and its
+  ``make_train_step`` (``lpt_loss_chunked``), the frontend in the batch:
+  1e-5 on the loss, 1e-4 relative norm on the gradient;
 - ``decode_step`` against the reference's ``decode_step`` on the same
   cache, with the cross cache left at zero as the reference leaves it and
   filled from ``encode`` + ``encode_cross_kv``; teacher-forced decode
@@ -35,22 +40,27 @@ import numpy as np
 import pytest
 import torch
 
+from repro.config import TuneConfig as JTuneConfig
 from repro.configs import get_config as jax_get_config
 from repro.configs import smoke_config as jax_smoke_config
 from repro.kernels.flash_attention import flash_attention as jflash
 from repro.kernels.ref import flash_attention_ref
+from repro.launch.steps import make_train_step as jax_make_train_step
 from repro.models import attention as jattn
 from repro.models import build_model
 from repro.models.common import unembed
 from repro.train.objectives import lpt_loss as jax_lpt_loss
 from repro.train.objectives import lpt_loss_chunked as jax_lpt_loss_chunked
+from repro.tuning import PromptTuner as JPromptTuner
 from repro.tuning import activation_features as jax_activation_features
 from repro.tuning.soft_prompt import _probe_tokens
 from repro_torch.config import TuneConfig
 from repro_torch.configs import get_config, smoke_config
 from repro_torch.core import PromptBank, PromptEntry, ScoreContext, select_score
 from repro_torch.kernels.flash_attention import flash_attention_plain
-from repro_torch.models import Model, params_from_jax, params_to_jax
+from repro_torch.launch import make_train_step
+from repro_torch.models import (Model, opt_state_to_numpy, params_from_jax, params_to_jax,
+                                prompt_from_arrays)
 from repro_torch.models import transformer
 from repro_torch.models.attention import cross_attention, encode_cross_kv
 from repro_torch.models.convert import flatten_tree
@@ -277,6 +287,62 @@ def test_select_score_is_the_two_layer_lookup():
     ref = bank.lookup(ctx)
     assert res.entry is ref.entry and res.score == ref.score
     assert np.isfinite(res.score)
+
+
+# -- prompt tuning ----------------------------------------------------------------------
+
+GRAD_TOL = 1e-4   # relative norm, as tests/test_torch_train.py
+
+
+def _rel_norm(a, b) -> float:
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
+
+
+def test_prompt_tuner_step_with_a_frontend_matches_jax_value_and_grad():
+    """A tuning step of an audio model: the encoder sees the batch's
+    frontend and no prompt, the gradient reaches the prompt through the
+    decoder's causal self attention and its non-causal cross attention."""
+    jmodel, params, _, model = pair()
+    cfg = dict(prompt_len=4, lr=0.1)
+    jt, tt = JPromptTuner(jmodel, JTuneConfig(**cfg)), PromptTuner(model, TuneConfig(**cfg))
+    pp = {"soft_prompt": (np.random.default_rng(12).normal(size=(4, 256)) * 0.1)
+          .astype(np.float32)}
+    b = _batch(13, S=9, B=3)
+    (jtot, (jloss, _)), jgrads = jt._grad({"soft_prompt": jnp.asarray(pp["soft_prompt"])},
+                                          params, {k: jnp.asarray(v) for k, v in b.items()})
+    tb = {k: torch.from_numpy(v) for k, v in b.items()}
+    tot, loss, grads = tt.loss_and_grad(prompt_from_arrays(pp, "cpu"), tb)
+    _close(loss, jloss)
+    _close(tot, jtot)
+    assert _rel_norm(grads["soft_prompt"].numpy(), jgrads["soft_prompt"]) <= GRAD_TOL
+    new, _, step_loss = tt.step(prompt_from_arrays(pp, "cpu"),
+                                tt.init_opt(prompt_from_arrays(pp, "cpu")), b)
+    _close(step_loss, jloss)
+    assert not np.allclose(new["soft_prompt"].detach().numpy(), pp["soft_prompt"])
+
+
+def test_make_train_step_splits_the_frontend_into_microbatches_as_jax():
+    """Two microbatches of 2 rows, each with its 2 rows of the frontend:
+    the step's loss and the first Adam moment (0.1 x the gradient after one
+    step) against the reference's scan over the same split."""
+    jmodel, params, _, model = pair()
+    cfg = dict(prompt_len=4, lr=0.1, weight_decay=0.01)
+    jstep, jo = jax_make_train_step(jmodel, JTuneConfig(**cfg), microbatches=2, ce_chunk=5)
+    tstep, to = make_train_step(model, TuneConfig(**cfg), microbatches=2, ce_chunk=5)
+    sp = (np.random.default_rng(14).normal(size=(4, 256)) * 0.1).astype(np.float32)
+    b = _batch(15, S=11, B=4)
+    assert b["frontend"].shape[0] == 4
+    jpp = {"soft_prompt": jnp.asarray(sp)}
+    _, jstate, jloss = jstep(params, jpp, jo.init(jpp), {k: jnp.asarray(v) for k, v in b.items()})
+    tpp = prompt_from_arrays({"soft_prompt": sp}, "cpu")
+    _, tstate, loss = tstep(tpp, to.init(tpp), {k: torch.from_numpy(v) for k, v in b.items()})
+    np.testing.assert_allclose(float(loss), float(jloss), rtol=TOL)
+    mine = opt_state_to_numpy(tstate)
+    assert mine["step"] == int(jstate.step) == 1
+    for key in ("mu", "nu"):
+        assert _rel_norm(mine[key]["soft_prompt"], getattr(jstate, key)["soft_prompt"]) \
+            <= GRAD_TOL, key
 
 
 # -- decode ----------------------------------------------------------------------------

@@ -285,18 +285,33 @@ def test_unported_families_raise():
         Model(vlm, device="cpu")
 
 
-def test_flash_attention_bwd_raises_at_head_dim_112(as_if_cuda):
-    """The forward takes hd 112 (zamba2-7b); the backward has no kernel for
-    it yet and raises before any launch, naming the slice that brings it,
-    also when a gradient reaches it through FlashAttention."""
-    q, kv = torch.zeros(1, 4, 8, 112), torch.zeros(1, 2, 8, 112)
+def test_flash_attention_bwd_raises_at_a_head_dim_with_no_kernel(as_if_cuda):
+    """The backward is built for head dims 64, 112 and 128; at 256 it raises
+    ValueError before any launch, with no fallback, also when a gradient
+    reaches it through FlashAttention."""
+    q, kv = torch.zeros(1, 4, 8, 256), torch.zeros(1, 2, 8, 256)
     lse = torch.zeros(1, 4, 8)
     before = fa_mod.flash_attention_bwd.launches
     _raises_without_fallback(lambda: fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse),
-                             NotImplementedError, "zamba2-7b tuning slice")
+                             ValueError, "head_dim=256 has no CUDA kernel")
     _raises_without_fallback(lambda: fa_mod.FlashAttention.backward(
         types.SimpleNamespace(saved_tensors=(q, kv, kv, q, lse), kw={}), q),
-        NotImplementedError, "head_dim=112")
+        ValueError, "head_dim=256")
+    assert fa_mod.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_bwd_takes_head_dim_112_to_its_kernel(as_if_cuda, dtype):
+    """Head dim 112 (zamba2-7b) passes the backward's checks and goes on to
+    build and launch its kernel, which this machine cannot: it raises there,
+    with no fallback and no launch counted."""
+    q, kv = torch.zeros(1, 4, 8, 112, dtype=dtype), torch.zeros(1, 2, 8, 112, dtype=dtype)
+    lse = torch.zeros(1, 4, 8)
+    assert 112 in fa_mod.HEAD_DIMS
+    before = fa_mod.flash_attention_bwd.launches
+    with pytest.raises(Exception) as info:
+        fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse)
+    assert not isinstance(info.value, (FellBack, ValueError)), info.value
     assert fa_mod.flash_attention_bwd.launches == before
 
 
