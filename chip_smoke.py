@@ -42,7 +42,14 @@ Phases, in order; any failure ends the run with a non-zero exit:
    one 2048-position chunk of prefill_32k (D = 3584, V = 152064), each
    beside its plain version, the library call and the bound.
    tools/flash_attention_variants.py compares the kernel with its one-term
-   P·V variant (one bf16 P, the kernel before P was split).
+   P·V variant (one bf16 P, the kernel before P was split). (2v) Head dim
+   256 (paligemma-3b: 8 query heads over one kv-head), in bf16 and f32,
+   each case held against its plain version and timed beside it, one SDPA
+   call and the bound: flash_attention causal at B = 16 and the lookups'
+   own lengths (289 and 769: 256 image patches, 16 prompt positions, 17 or
+   497 tokens), S = L = 127 and 129, kv_len and a window edge inside a
+   tile, not causal with S > L; flash_decode at decode_32k (B = 16, kv_len
+   32767) with auto_splits and with one split, and at kv_len 937 of 1000.
 3. The Prompt Bank lookup at full width: gpt2-base in bf16 with weights from
    --seed, 48 tasks x 4 jittered seed prompts = 192 candidates, activation
    features, a bank of 48 clusters, then three lookup requests (33, 33 and
@@ -246,6 +253,28 @@ Phases, in order; any failure ends the run with a non-zero exit:
    against CPU, on the Eqn-1 loss with a seeded frontend, 4 decode steps,
    and the loss and prompt gradient of a train_4k row's first 1024 tokens
    and of the tuning batch.
+
+15. paligemma-3b (after phase 14) at full width and depth, bf16, weights
+   from --seed: 18 layers, d = 2048, 8 heads of 256 over one kv-head, GELU,
+   V = 257216 tied, a vision frontend stub of 256 patches x 1152 prepended
+   to the sequence; 1.907 B parameters. (a) score_ce at (D, V) = (2048,
+   257216), T = 272 and 7952, timed beside its plain version, the library
+   call and the bound (the hd-256 attention kernels are held and timed in
+   2v); (c) teacher-forced decode of 32 text tokens against the forward;
+   (d) a bank of 48 candidates in 12 clusters (features on the reference's
+   zero frontend) and two select_score lookups (33 and 513 positions after
+   the image) whose evaluations carry a seeded (16, 256, 1152) f32 image:
+   flash_attention launched 18 times an evaluation, no plain version run,
+   each distinct call held against the plain version at its strides; the
+   Eqn-1 scores of two entries at full depth against the CPU's f32 path on
+   2 eval rows with their image rows; (g) one evaluation profiled; (f) 8
+   serve steps at decode_32k's full batch of 128 (77.3 GB of K/V, the
+   first 32760 slots seeded): flash_decode launched 18 times a step, no
+   plain version run, layer 0's own call of the last step held against the
+   plain version on 8 batch rows, one step profiled, the peak memory, and
+   flash_decode timed at that shape; (e) a 2-layer f32 cut, card against
+   CPU: the logits of one row of [image][prompt][tokens] and 4 decode
+   steps.
 
 Each model is freed before the next is drawn. The line before the last is
 {"kernels": [...]}, each kernel's numbers at the first shape of its paths
@@ -579,10 +608,87 @@ GQA_TIMED = [(16, 48, 8, 33, 128), (16, 48, 8, 513, 128),    # internlm2-20b, G 
              (16, 40, 10, 33, 128), (16, 40, 10, 513, 128),  # phi3-medium-14b, G = 4
              (16, 96, 8, 33, 128), (16, 96, 8, 513, 128)]    # command-r-plus-104b, G = 12
 PREFILL_CHUNK_SCORE = (2048, 3584, 152064)                    # T, D, V
+# Head dim 256 (paligemma-3b: 8 query heads over one kv-head), held and
+# timed in bf16 and f32 (2v). flash_attention at the lookups' own lengths
+# (256 image patches + 16 prompt positions + 17 or 497 tokens: 289 and 769,
+# neither a multiple of the 64-row tile), at the tile's edges, with kv_len
+# and a window edge inside a tile, and not causal with S > L: B, H, Hkv, S,
+# L, hd, kwargs (causal unless they say otherwise).
+VLM_FLASH_CASES = [
+    (16, 8, 1, 289, 289, 256, {}),
+    (16, 8, 1, 769, 769, 256, {}),
+    (4, 8, 1, 127, 127, 256, {}),
+    (4, 8, 1, 129, 129, 256, {}),
+    (2, 8, 1, 129, 200, 256, {"q_offset": 71, "kv_len": 170}),
+    (2, 8, 1, 65, 200, 256, {"q_offset": 135, "window": 70}),
+    (2, 8, 1, 300, 200, 256, {"causal": False, "kv_len": 180}),
+]
+# flash_decode at decode_32k (B = 16 of its 128; the whole batch runs in
+# phase 15) with auto_splits and with one split, and over 937 of 1000 rows:
+# B, H, Hkv, L, hd, kwargs
+VLM_DECODE_CASES = [
+    (16, 8, 1, 32768, 256, {"kv_len": 32767}),
+    (16, 8, 1, 32768, 256, {"kv_len": 32767, "splits": 1}),
+    (16, 8, 1, 1000, 256, {"kv_len": 937}),
+]
+
+
+def decode_row(label: str, B: int, H: int, Hkv: int, L: int, hd: int, kw: dict, dtype, gen,
+               dev) -> dict:
+    """flash_decode at one case in ``dtype`` on a drawn (B, L, Hkv, hd)
+    cache, the model's layout, read through transposed views, held against its
+    plain version (bf16 at DECODE_BF16_RTOL and DECODE_BF16_ATOL x max
+    |plain|, f32 at TOL), then timed beside the plain version, one SDPA
+    call over the live rows and the bound. Returns the row, its error under
+    "err"."""
+    from repro_torch.kernels.flash_decode import (auto_splits, flash_decode, flash_decode_plain,
+                                                  live_range)
+
+    q = torch.randn(B, H, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=dev).to(dtype).transpose(1, 2)
+            for _ in range(2))
+    out = flash_decode(q, k, v, **kw)
+    torch.cuda.synchronize()
+    ref = flash_decode_plain(q, k, v, **kw)
+    top = ref.float().abs().max().item()
+    rtol, atol = ((DECODE_BF16_RTOL, DECODE_BF16_ATOL * top) if dtype == torch.bfloat16
+                  else (TOL[dtype], TOL[dtype]))
+    lo, hi = live_range(L, kw.get("kv_len"), kw.get("q_pos"), kw.get("window", 0))
+    splits = kw.get("splits") or auto_splits(
+        B, Hkv, H // Hkv, hi - lo, torch.cuda.get_device_properties(dev).multi_processor_count)
+    shape = f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} {kw} {dtype}, {splits} splits"
+    err = check_close(f"{label} flash_decode {shape}", out, ref, rtol, atol)
+    del out, ref
+    b_ms, b_by = decode_bound(B, H, Hkv, hd, hi - lo, q.element_size(),
+                              PEAK_BF16_FLOPS if dtype == torch.bfloat16 else PEAK_F32_FLOPS)
+    row = {"shape": shape, "ms": time_ms(lambda: flash_decode(q, k, v, **kw)), "err": err,
+           "plain_ms": time_ms(lambda: flash_decode_plain(q, k, v, **kw), reps=5),
+           "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
+               q[:, :, None], k[:, :, lo:hi], v[:, :, lo:hi], enable_gqa=H != Hkv)),
+           "bound_ms": b_ms, "bound_by": b_by}
+    print(f"{label} flash_decode {shape}: max abs err {err:.3e} (rtol {rtol}, atol {atol:.2e}; "
+          f"max |out| {top:.3e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, "
+          f"library (SDPA over the live rows) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms "
+          f"({b_by})")
+    return row
+
+
+def hd256_kernel_rows(dev: torch.device, gen) -> tuple:
+    """2v: VLM_FLASH_CASES and VLM_DECODE_CASES in bf16 and f32, each held
+    and timed. Returns the rows and the largest errors."""
+    rows = {"flash_attention": [], "flash_decode": []}
+    for dtype in (torch.bfloat16, torch.float32):
+        for B, H, Hkv, S, L, hd, kw in VLM_FLASH_CASES:
+            rows["flash_attention"].append(attention_row("[2v]", B, H, Hkv, S, hd, gen, dev, L=L,
+                                                         dtype=dtype, trace=False, **kw))
+        for B, H, Hkv, L, hd, kw in VLM_DECODE_CASES:
+            rows["flash_decode"].append(decode_row("[2v]", B, H, Hkv, L, hd, kw, dtype, gen, dev))
+    return rows, {name: max(r["err"] for r in rs) for name, rs in rows.items()}
 
 
 def phase_kernels(dev: torch.device, seed: int) -> tuple:
-    """Returns each kernel's largest error, and the rows timed in 2t."""
+    """Returns each kernel's largest error, and the rows timed in 2t and
+    2v."""
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
     from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
     from repro_torch.kernels.rwkv_wkv import rwkv6_wkv, rwkv6_wkv_plain
@@ -720,6 +826,12 @@ def phase_kernels(dev: torch.device, seed: int) -> tuple:
     emb = (torch.randn(V, D, generator=gen, device=dev) * 0.05).bfloat16()
     rows["score_ce"] = score_ce_rows("[2t]", "qwen2-7b prefill_32k chunk", emb, (T,), gen)
     del emb
+    # 2v: head dim 256, held and timed
+    hd256, errs = hd256_kernel_rows(dev, gen)
+    rows["flash_attention"] += hd256["flash_attention"]
+    rows["flash_decode"] = hd256["flash_decode"]
+    for name, err in errs.items():
+        worst[name] = max(worst[name], err)
     return worst, rows
 
 
@@ -1590,11 +1702,12 @@ def free_card() -> None:
     torch.cuda.empty_cache()
 
 
-def decode_bound(B: int, H: int, Hkv: int, hd: int, live: int, elt: int):
+def decode_bound(B: int, H: int, Hkv: int, hd: int, live: int, elt: int,
+                 peak_flops: float = PEAK_BF16_FLOPS):
     """Least time of one flash_decode call: K and V live rows read once, q
     read and the output written once; 4 operations per (head, row, dim)."""
     nbytes = 2 * B * live * Hkv * hd * elt + 2 * B * H * hd * elt
-    return bound(4.0 * B * H * live * hd, nbytes, PEAK_BF16_FLOPS)
+    return bound(4.0 * B * H * live * hd, nbytes, peak_flops)
 
 
 def wkv_bound(B: int, H: int, T: int, hd: int, elt: int):
@@ -2409,39 +2522,51 @@ HYBRID_CUT_LAYERS = 7          # 6 + 1 Mamba2 layers: one shared-attention appli
 
 
 def attention_row(label: str, B: int, H: int, Hkv: int, S: int, hd: int, gen, dev, *,
-                  L: int | None = None, causal: bool = True, trace: bool = True) -> dict:
-    """flash_attention in bf16, S queries against L keys (S = L unless
-    given; causal only at S = L), held against its plain version at
-    fa_bf16_bound, then timed: the kernel, its plain version, one SDPA call
-    and the bound (the live pairs' operations, q, k, v and the output moved
-    once); with ``trace`` also what it launches. Returns the row, its error
+                  L: int | None = None, causal: bool = True, trace: bool = True,
+                  dtype=torch.bfloat16, **masks) -> dict:
+    """flash_attention in ``dtype``, S queries against L keys (S = L unless
+    given) with ``masks`` (window, q_offset, kv_len), held against its plain
+    version (bf16 at fa_bf16_bound, f32 at TOL), then timed: the kernel, its
+    plain version, one SDPA call (``is_causal`` where only causality masks,
+    the live mask where more does) and the bound (4·hd operations a live
+    pair; q and the output moved once, and the K and V rows some live pair
+    reads); with ``trace`` also what it launches. Returns the row, its error
     under "err"."""
-    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_plain
+    from repro_torch.kernels.flash_attention import (_live_mask, flash_attention,
+                                                     flash_attention_plain)
 
     L = S if L is None else L
-    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(torch.bfloat16)
-    k, v = (torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(torch.bfloat16)
-            for _ in range(2))
+    kw = dict(causal=causal, **masks)
+    q = torch.randn(B, H, S, hd, generator=gen, device=dev).to(dtype)
+    k, v = (torch.randn(B, Hkv, L, hd, generator=gen, device=dev).to(dtype) for _ in range(2))
+    bf16 = dtype == torch.bfloat16
     shape = (f"B={B} H={H} Hkv={Hkv} {f'S=L={S}' if S == L else f'S={S} L={L}'} hd={hd} "
-             f"{'causal' if causal else 'not causal'} bf16")
-    call = lambda: flash_attention(q, k, v, causal=causal)   # noqa: E731
+             f"{'causal' if causal else 'not causal'}{f' {masks}' if masks else ''} "
+             f"{'bf16' if bf16 else 'f32'}")
+    call = lambda: flash_attention(q, k, v, **kw)   # noqa: E731
     out = call()
     torch.cuda.synchronize()
-    ref = flash_attention_plain(q, k, v, causal=causal)
-    rtol, atol = fa_bf16_bound(ref)
+    ref = flash_attention_plain(q, k, v, **kw)
+    rtol, atol = fa_bf16_bound(ref) if bf16 else (TOL[dtype], TOL[dtype])
     err = check_close(f"{label} flash_attention {shape}", out, ref, rtol, atol)
     del out, ref
-    pairs = S * (S + 1) // 2 if causal else S * L
+    live = _live_mask(S, L, causal=causal, window=masks.get("window", 0),
+                      q_offset=masks.get("q_offset", 0), kv_len=masks.get("kv_len"), device=dev)
+    pairs, cols = int(live.sum()), int(live.any(0).sum())
+    only_causal = S == L and not any(masks.values())
+    sdpa = dict(is_causal=causal) if only_causal or not (causal or masks) else dict(attn_mask=live)
     b_ms, b_by = bound(4.0 * B * H * pairs * hd,
-                       (2 * B * H * S + 2 * B * Hkv * L) * hd * q.element_size(), PEAK_BF16_FLOPS)
+                       (2 * B * H * S + 2 * B * Hkv * cols) * hd * q.element_size(),
+                       PEAK_BF16_FLOPS if bf16 else PEAK_F32_FLOPS)
     row = {"shape": shape, "ms": time_ms(call), "err": err,
-           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, causal=causal), reps=5),
+           "plain_ms": time_ms(lambda: flash_attention_plain(q, k, v, **kw), reps=5),
            "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=causal, enable_gqa=H != Hkv)),
+               q, k, v, enable_gqa=H != Hkv, **sdpa)),
            "bound_ms": b_ms, "bound_by": b_by}
     print(f"{label} flash_attention {shape}: max abs err {err:.3e} (rtol {rtol}, atol "
           f"{atol:.2e}); kernel {row['ms']:.4f} ms, plain {row['plain_ms']:.4f} ms, library "
-          f"(SDPA) {row['library_ms']:.4f} ms, bound {b_ms:.4f} ms ({b_by})")
+          f"(SDPA{', the live mask' if 'attn_mask' in sdpa else ''}) {row['library_ms']:.4f} ms, "
+          f"bound {b_ms:.4f} ms ({b_by})")
     if trace:
         kernel_launches(f"{label} flash_attention S={S} hd={hd}", call)
     return row
@@ -3467,10 +3592,11 @@ ENCDEC_F32_LOSS_RTOL = 1e-6
 ENCDEC_CPU_TOKENS = 1024
 
 
-def encdec_score_fn(model, task, tune_cfg, gen):
+def frontend_score_fn(model, task, tune_cfg, gen):
     """make_score_fn's scorer with a frontend drawn from ``gen`` in its eval
-    batch (rows x frames x embed_dim, f32): an encoder-decoder's Eqn-1 score
-    needs one, and the task loader's batches carry none."""
+    batch (rows x frames x embed_dim, f32): the Eqn-1 score of a model with
+    a frontend (an encoder-decoder's audio, a VLM's image) needs one, and
+    the task loader's batches carry none."""
     from repro_torch.core import ScoreContext, make_score_fn
 
     base = make_score_fn(model, task, tune_cfg)
@@ -3500,44 +3626,17 @@ def encdec_kernel_rows(cfg, gen, dev) -> dict:
     the cross attention of 33 and 513 positions against them; flash_decode at
     decode_32k (B = 16) and against the 1024 cross rows; score_ce at V =
     256206, T = 272 and 7952. Returns the rows and the largest errors."""
-    from repro_torch.kernels.flash_decode import auto_splits, flash_decode, flash_decode_plain
-
     B, H, Hkv, hd = 16, cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim()
-    frames, bf16 = cfg.frontend.num_embeddings, torch.bfloat16
-    # the encoder (S = L) and the cross attention of 33 and 513 positions
+    frames = cfg.frontend.num_embeddings
+    # the encoder (S = L) and the cross attention of 33 and 513 positions;
+    # decode_32k's self-attention, and the cross attention with every row live
     rows = {"flash_attention": [attention_row("[14a]", B, H, Hkv, S, hd, gen, dev, L=frames,
                                               causal=False, trace=False)
-                                for S in (frames, 33, 513)], "flash_decode": []}
-    worst = {"flash_attention": max(r["err"] for r in rows["flash_attention"]),
-             "flash_decode": 0.0}
-    sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    for L, live, what in ((32768, 32767, "decode_32k self-attention"),
-                          (frames, frames, "cross attention, every row live")):
-        q = torch.randn(B, H, hd, generator=gen, device=dev).to(bf16)
-        k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=dev).to(bf16).transpose(1, 2)
-                for _ in range(2))
-        out = flash_decode(q, k, v, kv_len=live)
-        torch.cuda.synchronize()
-        ref = flash_decode_plain(q, k, v, kv_len=live)
-        top = ref.float().abs().max().item()
-        shape = (f"B={B} H={H} Hkv={Hkv} hd={hd} L={L} kv_len={live} ({what}) bf16, "
-                 f"{auto_splits(B, Hkv, H // Hkv, live, sms)} splits")
-        err = check_close(f"[14a] flash_decode {shape}", out, ref, DECODE_BF16_RTOL,
-                          DECODE_BF16_ATOL * top)
-        worst["flash_decode"] = max(worst["flash_decode"], err)
-        b_ms, b_by = decode_bound(B, H, Hkv, hd, live, q.element_size())
-        row = {"shape": shape, "ms": time_ms(lambda: flash_decode(q, k, v, kv_len=live)),
-               "plain_ms": time_ms(lambda: flash_decode_plain(q, k, v, kv_len=live), reps=5),
-               "library_ms": time_ms(lambda: F.scaled_dot_product_attention(
-                   q[:, :, None], k[:, :, :live], v[:, :, :live], enable_gqa=H != Hkv)),
-               "bound_ms": b_ms, "bound_by": b_by}
-        rows["flash_decode"].append(row)
-        print(f"[14a] flash_decode {shape}: max abs err {err:.3e} (rtol {DECODE_BF16_RTOL}, atol "
-              f"{DECODE_BF16_ATOL * top:.2e}); kernel {row['ms']:.4f} ms, plain "
-              f"{row['plain_ms']:.4f} ms, library (SDPA) {row['library_ms']:.4f} ms, bound "
-              f"{b_ms:.4f} ms ({b_by})")
-        del q, k, v, out, ref
-    return {"rows": rows, "worst": worst}
+                                for S in (frames, 33, 513)],
+            "flash_decode": [decode_row("[14a]", B, H, Hkv, L, hd, {"kv_len": live},
+                                        torch.bfloat16, gen, dev)
+                             for L, live in ((32768, 32767), (frames, frames))]}
+    return {"rows": rows, "worst": {name: max(r["err"] for r in rs) for name, rs in rows.items()}}
 
 
 def encdec_depth_witness(model, tokens: torch.Tensor, frontend: torch.Tensor) -> dict:
@@ -3812,7 +3911,7 @@ def phase_encdec(dev: torch.device, seed: int) -> dict:
     kept: dict = {}
     with recorded_attention([], kept):
         look = bank_and_lookups("[14b]", model, requests, seed,
-                                score_fn_for=lambda task, tc: encdec_score_fn(model, task, tc, gen))
+                                score_fn_for=lambda task, tc: frontend_score_fn(model, task, tc, gen))
     per_layer = cfg.encdec.num_encoder_layers + 2 * cfg.num_layers   # encoder, self, cross
     if look["per_eval"] != per_layer:
         raise AssertionError(f"[14b] flash_attention launched {look['per_eval']} times an "
@@ -3907,6 +4006,266 @@ def phase_encdec(dev: torch.device, seed: int) -> dict:
                                           "step_s", "peak_gib", "held", "grad_rel", "profile",
                                           "micro_profile")},
             "cut_grads": cut_grads, "seconds": wall}
+
+
+# -- phase 15 -------------------------------------------------------------------
+
+# paligemma-3b's decode_32k at the shape's full batch, no cut: 18 layers x 2 x
+# 128 x 32768 x 256 x 2 B = 77.3 GB of K/V, 0.30 GB of int32 positions and
+# 3.81 GB of weights, 81.4 GB of the card's 85.
+VLM_SERVE_BATCH = 128
+VLM_CUT_LAYERS = 2
+# The full-depth Eqn-1 scores held against the CPU's f32 path (15d) take the
+# first rows of the 33-position request's eval batch with their frontend
+# rows: the CPU's f32 forward of 1.9 B parameters over 16 rows of 289
+# positions would take minutes.
+VLM_CPU_ROWS = 2
+# Batch rows of one serve step's own flash_decode call held against the
+# plain version (15f): its f32 copy of the whole 128-row cache would not fit.
+DECODE_HOLD_ROWS = 8
+
+
+@contextlib.contextmanager
+def recorded_decode(calls: list):
+    """Keeps each flash_decode call's q, k and v (the cache's own views, not
+    copies), keywords and output in ``calls``. A layer's cache rows that a
+    step read are not written again by later layers or steps, which write
+    only past them."""
+    from repro_torch.kernels import ops
+
+    saved = ops.flash_decode
+
+    def rec(q, k, v, **kw):
+        out = saved(q, k, v, **kw)
+        calls.append((q, k, v, dict(kw), out))
+        return out
+    ops.flash_decode = rec
+    try:
+        yield
+    finally:
+        ops.flash_decode = saved
+
+
+def frontend_scores_vs_cpu(label: str, model, look: dict, rows: int) -> float:
+    """Eqn-1 scores of the first request's picked entry and another medoid
+    at full depth, the card in bf16 against the CPU's f32 path on the same
+    weights (widened), on the first ``rows`` rows of the request's eval
+    batch with their frontend rows, at BF16_SCORE_RTOL."""
+    from repro_torch.core import ScoreContext
+    from repro_torch.models import Model
+    from repro_torch.tuning import PromptTuner
+
+    bank, (task, res, score_fn) = look["bank"], look["results"][0]
+    batch = {k: v[:rows] for k, v in score_fn.eval_batch.items()}
+    t0 = time.perf_counter()
+    cpu = Model(model.cfg.with_overrides(dtype="float32", param_dtype="float32"), device="cpu",
+                seed=None)
+    cpu.load_state_dict(model.state_dict())
+    card_fn = ScoreContext(score_fn.tuner, batch)
+    cpu_fn = ScoreContext(PromptTuner(cpu, score_fn.tuner.tune_cfg),
+                          {k: v.cpu() for k, v in batch.items()})
+    entries = [res.entry, next(bank.entries[i] for i in bank.medoid_ids
+                               if bank.entries[i] is not res.entry)]
+    worst = 0.0
+    for entry in entries:
+        c, g = cpu_fn(entry), card_fn(entry)
+        rel = abs(g - c) / abs(c)
+        worst = max(worst, rel)
+        print(f"{label} {task.task_id} {entry.origin}, {rows} eval rows with the image: cpu f32 "
+              f"{c:.6f}, card bf16 {g:.6f} (rel {rel:.2e}, tol {BF16_SCORE_RTOL})")
+    print(f"{label} the CPU's f32 path: {time.perf_counter() - t0:.1f} s")
+    del cpu, cpu_fn
+    if not worst <= BF16_SCORE_RTOL:
+        raise AssertionError(f"{label} card bf16 Eqn-1 scores disagree with the CPU f32 path")
+    return worst
+
+
+def vlm_serve(model, gen) -> dict:
+    """15f: decode_32k at VLM_SERVE_BATCH rows, the cache's first 32760 slots
+    seeded, 8 serve steps with flash_decode launched once a layer and no
+    plain version run, one layer's own call held on DECODE_HOLD_ROWS rows,
+    one step profiled, the peak memory; then flash_decode timed at the
+    step's shape on one layer's fresh K/V."""
+    from repro_torch.config import INPUT_SHAPES
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_decode import flash_decode, flash_decode_plain
+    from repro_torch.kernels.score_ce import score_ce
+    from repro_torch.launch import make_serve_step
+
+    cfg, dev = model.cfg, model.device
+    shape = INPUT_SHAPES["decode_32k"]
+    B, L = VLM_SERVE_BATCH, shape.seq_len
+    H, Hkv, hd, V = cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size
+    kv_gb = cfg.num_layers * 2 * B * L * Hkv * hd * 2 / 1e9
+    pos_gb = cfg.num_layers * B * L * 4 / 1e9
+    weight_gb = sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9
+    free, total = torch.cuda.mem_get_info(dev)
+    print(f"[15f] {shape.name}: cache of {L} tokens at batch {B} of {shape.global_batch}: "
+          f"{kv_gb:.2f} GB of K/V + {pos_gb:.2f} GB of positions + {weight_gb:.2f} GB of weights "
+          f"= {kv_gb + pos_gb + weight_gb:.2f} GB of the card's {total / 1e9:.2f} GB "
+          f"({free / 1e9:.2f} GB free before the cache, "
+          f"{torch.cuda.memory_allocated(dev) / 1e9:.2f} GB allocated)")
+    torch.cuda.reset_peak_memory_stats(dev)
+    cache = model.init_cache(B, L)
+    kv = cache["blocks"]["kv"]
+    filled = L - 8                                      # seeded K/V at positions 0..32759
+    for i in range(cfg.num_layers):
+        for name in ("k", "v"):
+            kv[name][i].normal_(generator=gen)
+            kv[name][i, :, filled:].zero_()
+    kv["pos"][:, :, :filled] = torch.arange(filled, device=dev, dtype=torch.int32)
+    serve = make_serve_step(model)
+    tok = torch.randint(3, V, (B, 1), generator=gen, device=dev, dtype=torch.int32)
+    torch.cuda.synchronize()
+    n_steps, step_s, calls, seen = L - filled, [], {}, []
+    kernels = {"flash_decode": flash_decode, "flash_attention": flash_attention,
+               "score_ce": score_ce}
+    for fn in kernels.values():
+        fn.launches = 0
+    with plain_calls(calls), recorded_decode(seen):
+        for i in range(n_steps):
+            t = time.perf_counter()
+            tok, cache = serve(cache, tok, filled + i)
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t)
+    launches = {name: fn.launches for name, fn in kernels.items()}
+    if launches["flash_decode"] != cfg.num_layers * n_steps or any(calls.values()):
+        raise AssertionError(f"[15f] {n_steps} serve steps launched {launches}, not "
+                             f"{cfg.num_layers} flash_decode a step, or a plain version ran: "
+                             f"{calls}")
+    if not ((tok >= 0) & (tok < V)).all():
+        raise AssertionError("[15f] a serve step gave tokens outside the vocabulary")
+    med = statistics.median(step_s[1:])
+    print(f"[15f] {n_steps} serve steps at cache_len {filled}..{L - 1}: "
+          f"{[round(x * 1e3, 2) for x in step_s]} ms; median (steps 2..) {med * 1e3:.2f} ms per "
+          f"step, {B / med:.0f} tokens/s; launches {launches} "
+          f"({launches['flash_decode'] // n_steps} flash_decode a step)")
+    # layer 0's call of the last step, on its first DECODE_HOLD_ROWS rows
+    q, k, v, kw, out = seen[-cfg.num_layers]
+    n = DECODE_HOLD_ROWS
+    ref = flash_decode_plain(q[:n], k[:n], v[:n], **{x: y for x, y in kw.items()
+                                                     if x != "splits"})
+    top = ref.float().abs().max().item()
+    held = check_close(f"[15f] layer 0's flash_decode call of the last step, rows 0..{n - 1}",
+                       out[:n], ref, DECODE_BF16_RTOL, DECODE_BF16_ATOL * top)
+    print(f"[15f] layer 0's own flash_decode call of the last step (q {tuple(q.shape)}, k "
+          f"{tuple(k.shape)} strides {k.stride()}, {kw}) on rows 0..{n - 1} against the plain "
+          f"version: max abs err {held:.3e} (rtol {DECODE_BF16_RTOL}, atol "
+          f"{DECODE_BF16_ATOL * top:.2e})")
+    del seen, q, k, v, out, ref
+    profile = profile_calls(f"[15f] one serve step at batch {B}, cache {L - 1}",
+                            lambda: serve(cache, tok, L - 1), warm=2, reps=5, traced=3)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    print(f"[15f] peak memory over the cache and the steps: {peak_gb:.2f} GB")
+    del cache, kv
+    free_card()
+    # flash_decode at the step's shape, on one layer's fresh K/V
+    row = decode_row("[15f]", B, H, Hkv, L, hd, {"kv_len": L - 1}, torch.bfloat16, gen, dev)
+    row.update(launches=launches["flash_decode"], step_ms=med * 1e3, tokens_per_s=B / med,
+               profile=profile, peak_gb=peak_gb, held_err=held)
+    free_card()
+    return row
+
+
+def vlm_cut_vs_cpu(cut_and_state, dev, gen) -> float:
+    """15e: the 2-layer f32 cut at full width, card against CPU, on one row
+    of [image][prompt][tokens]: the forward's logits at every position, then
+    4 decode steps of text, at F32_LOGIT_TOL."""
+    card, cpu = depth_cut(cut_and_state, dev)
+    fc, d, V = card.cfg.frontend, card.cfg.d_model, card.cfg.vocab_size
+    fe = torch.randn(1, fc.num_embeddings, fc.embed_dim, generator=gen, device=dev)
+    tokens = torch.randint(3, V, (1, 8), generator=gen, device=dev)
+    prompt = 0.02 * torch.randn(16, d, generator=gen, device=dev)
+    with torch.no_grad():
+        lg = card(tokens, prompt, fe).cpu()
+        lc = cpu(tokens.cpu(), prompt.cpu(), fe.cpu())
+    worst = check_close(f"[15e] {VLM_CUT_LAYERS}-layer f32 cut, logits of [image][prompt][tokens]",
+                        lg, lc, F32_LOGIT_TOL)
+    print(f"[15e] {VLM_CUT_LAYERS}-layer f32 cut, logits of {lg.shape[1]} positions "
+          f"({fc.num_embeddings} image + 16 prompt + 8 tokens), card (kernels) against CPU "
+          f"(plain versions): max abs diff {worst:.3e} (tol {F32_LOGIT_TOL})")
+    del lg, lc
+    caches = [m.init_cache(1, 8) for m in (card, cpu)]
+    for t in range(4):
+        g, _ = card.decode_step(caches[0], tokens[:, t:t + 1], t)
+        c, _ = cpu.decode_step(caches[1], tokens[:, t:t + 1].cpu(), t)
+        worst = max(worst, check_close(f"[15e] decode step {t}, card f32 against CPU f32",
+                                       g.cpu(), c, F32_LOGIT_TOL))
+    print(f"[15e] the cut's 4 decode steps and its forward: max abs logit diff {worst:.3e} "
+          f"(tol {F32_LOGIT_TOL})")
+    return worst
+
+
+def phase_vlm(dev: torch.device, seed: int) -> dict:
+    """paligemma-3b (18 layers, 8 heads of 256 over one kv-head, a vision
+    frontend stub of 256 patches x 1152) at full width and depth, bf16,
+    weights from ``seed``."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_tasks
+    from repro_torch.models import Model
+
+    t_phase = time.perf_counter()
+    cfg = get_config("paligemma-3b")
+    t0 = time.perf_counter()
+    model = Model(cfg, device=dev, seed=seed)
+    torch.cuda.synchronize()
+    n_params = sum(p.numel() for p in model.parameters())
+    H, Hkv, hd, V = cfg.num_heads, cfg.kv_heads(), cfg.resolved_head_dim(), cfg.vocab_size
+    patches, E = cfg.frontend.num_embeddings, cfg.frontend.embed_dim
+    print(f"[15] {cfg.name}: {cfg.num_layers} layers, d={cfg.d_model}, H={H}, Hkv={Hkv}, hd={hd}, "
+          f"d_ff {cfg.d_ff}, V={V}, vision frontend {patches} patches x {E}, {cfg.norm}, "
+          f"{cfg.activation}, tied={cfg.tie_embeddings}, {cfg.dtype}; {n_params / 1e9:.3f} B "
+          f"parameters, {sum(p.numel() * p.element_size() for p in model.parameters()) / 1e9:.2f} "
+          f"GB; drawn from seed {seed} in {time.perf_counter() - t0:.1f} s")
+    gen = torch.Generator(device=dev).manual_seed(seed + 15)
+
+    # (a) score_ce at (D, V) = (2048, 257216); the hd-256 attention kernels are held in 2v
+    score_rows = score_ce_rows("[15a]", cfg.name, model.embedding.detach(), (16 * 17, 16 * 497),
+                               gen)
+
+    # (c) teacher-forced decode against the forward, on text
+    decode_rel = teacher_forced("[15c]", model,
+                                torch.randint(3, V, (2, 32), generator=gen, device=dev))
+
+    # (d) Prompt Bank lookups, each evaluation's batch carrying a seeded image
+    tasks = make_tasks(vocab=32, partitions=2)
+    requests = [tasks[5], make_tasks(input_len=248, target_len=248)[9]]   # 33, 513 positions
+    kept: dict = {}
+    with recorded_attention([], kept):
+        look = bank_and_lookups("[15d]", model, requests, seed,
+                                score_fn_for=lambda task, tc: frontend_score_fn(model, task, tc,
+                                                                                gen))
+    if look["per_eval"] != cfg.num_layers:
+        raise AssertionError(f"[15d] flash_attention launched {look['per_eval']} times an "
+                             f"evaluation, not {cfg.num_layers}")
+    _, res, score_fn = look["results"][0]
+    # (g) one evaluation profiled
+    profile = profile_calls(f"[15g] one {cfg.name} evaluation at "
+                            f"{patches + 16 + score_fn.eval_batch['tokens'].shape[1]} positions",
+                            lambda: score_fn(res.entry), warm=2, reps=5, traced=2)
+    cpu_rel = frontend_scores_vs_cpu("[15d]", model, look, VLM_CPU_ROWS)
+    del look["bank"], look["results"], score_fn, res
+    free_card()
+    held_err = hold_recorded("[15d]", kept)
+    del kept
+    free_card()
+
+    # (f) the serve step at decode_32k's full batch
+    state = cut_state(model, VLM_CUT_LAYERS)
+    decode_row = vlm_serve(model, gen)
+    del model
+    free_card()
+
+    # (e) the 2-layer f32 cut against the CPU
+    cut_err = vlm_cut_vs_cpu(state, dev, gen)
+    del state
+    free_card()
+    wall = time.perf_counter() - t_phase
+    print(f"[15] {cfg.name}: {wall:.1f} s")
+    return {"score_rows": score_rows, "decode_row": decode_row, "by_shape": look["by_shape"],
+            "per_eval": look["per_eval"], "profile": profile, "held_err": held_err,
+            "decode_rel": decode_rel, "cpu_score_rel": cpu_rel, "cut_err": cut_err,
+            "seconds": wall}
 
 
 # -- phase 9 --------------------------------------------------------------------
@@ -4734,7 +5093,7 @@ def phase_train_vicuna(dev: torch.device, seed: int) -> dict:
 def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dict,
                  mla: dict, mla_serve: dict, bwd: dict, tune: dict, train: dict,
                  pre: dict, service: dict, hybrid: dict, dense: dict, shapes: dict,
-                 timed: dict, encdec: dict) -> list:
+                 timed: dict, encdec: dict, vlm: dict) -> list:
     """One entry per kernel for the {"kernels": [...]} line: its numbers at
     the first shape of the paths that launch it (the other shapes under
     "shapes"), and its launches on those paths' runs, in all and by path
@@ -4760,6 +5119,9 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
              "score_ce_de": pre["worst"]}
     for name, err in encdec["worst"].items():
         worst[name] = max(worst[name], err)
+    worst["flash_attention"] = max(worst["flash_attention"], vlm["held_err"])
+    worst["flash_decode"] = max(worst["flash_decode"], vlm["decode_row"]["err"],
+                                vlm["decode_row"]["held_err"])
     worst["flash_attention_bwd"] = max(worst["flash_attention_bwd"], hybrid["bwd_held"],
                                        encdec["tune"]["held"])
     path = lambda model, counts: {f"{model}, {k}": n for k, n in counts.items()}
@@ -4788,13 +5150,15 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
         "score_ce": (rows["score_ce"] + rwkv["score_rows"] + mla_serve["score_rows"]
                      + hybrid["score_rows"]
                      + [r for arch in dense.values() for r in arch["score_rows"]]
-                     + timed["score_ce"] + encdec["score_rows"] + bwd["rows"]["score_ce"],
+                     + timed["score_ce"] + encdec["score_rows"] + vlm["score_rows"]
+                     + bwd["rows"]["score_ce"],
                      {**path("gpt2-base", launches["by_shape"]["score_ce"]),
                       **path("rwkv6-7b", rwkv["by_shape"]["score_ce"]),
                       **path("deepseek-v2-236b", mla_serve["score_ce_by_shape"]),
                       **path("zamba2-7b", hybrid["by_shape"]["score_ce"]),
                       **family("score_ce"), prefill_path: prefill["launches"]["score_ce"],
                       **path("seamless-m4t-medium", encdec["by_shape"]["score_ce"]),
+                      **path("paligemma-3b", vlm["by_shape"]["score_ce"]),
                       **tuning("score_ce"), **svc("score_ce")}),
         "flash_attention": (rows["flash_attention"] + hybrid["fa_rows"] + [shapes["fa_row"]]
                             + timed["flash_attention"] + encdec["fa_rows"]
@@ -4804,6 +5168,7 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
                              **family("flash_attention"),
                              **path("seamless-m4t-medium",
                                     encdec["by_shape"]["flash_attention"]),
+                             **path("paligemma-3b", vlm["by_shape"]["flash_attention"]),
                              prefill_path: prefill["launches"]["flash_attention"],
                              **tuning("flash_attention"), **svc("flash_attention")}),
         "score_ce_bwd": (bwd["rows"]["score_ce_bwd"],
@@ -4811,11 +5176,14 @@ def kernel_lines(worst: dict, rows: dict, launches: dict, serve: dict, rwkv: dic
         "flash_attention_bwd": (bwd["rows"]["flash_attention_bwd"],
                                 {**tuning("flash_attention_bwd"),
                                  **svc("flash_attention_bwd")}),
-        "flash_decode": ([serve, hybrid["decode_row"]] + encdec["decode_rows"],
+        "flash_decode": ([serve, hybrid["decode_row"]] + encdec["decode_rows"]
+                         + [vlm["decode_row"]] + timed["flash_decode"],
                          {"qwen2-7b, serve steps": serve["launches"],
                           "zamba2-7b, serve steps": hybrid["decode_row"]["launches"],
                           "seamless-m4t-medium, serve steps (self and cross)":
-                              encdec["decode_launches"]}),
+                              encdec["decode_launches"],
+                          f"paligemma-3b, serve steps (batch {VLM_SERVE_BATCH})":
+                              vlm["decode_row"]["launches"]}),
         "rwkv6_wkv": (rwkv["rows"], {**path("rwkv6-7b", rwkv["by_shape"]["rwkv6_wkv"]),
                                      **tuning("rwkv6_wkv")}),
         "rwkv6_wkv_bwd": (rtune["rows"], tuning("rwkv6_wkv_bwd")),
@@ -4873,9 +5241,11 @@ def main() -> None:
     shapes = phase_long_shapes(dev, args.seed)
     free_card()
     encdec = phase_encdec(dev, args.seed)
+    free_card()
+    vlm = phase_vlm(dev, args.seed)
 
     kernels = kernel_lines(worst, rows, launches, serve, rwkv, mla, mla_serve, bwd, tune, train,
-                           pre, service, hybrid, dense, shapes, timed, encdec)
+                           pre, service, hybrid, dense, shapes, timed, encdec, vlm)
     print(f"[done] {time.perf_counter() - t_start:.1f} s on {card}")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

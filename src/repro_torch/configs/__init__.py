@@ -2,8 +2,8 @@
 (the paper's gpt2-base, gpt2-large and vicuna-7b among them, and
 command-r-plus-104b's parallel LayerNorm block), the RWKV6
 family, the MLA + MoE family, the Zamba2 hybrid (Mamba2 + shared
-attention) and the encoder-decoder seamless-m4t-medium (audio frontend
-stub).
+attention), the encoder-decoder seamless-m4t-medium (audio frontend stub)
+and the VLM paligemma-3b (vision frontend stub).
 
 ``get_config(arch)`` returns the full configuration, ``smoke_config(arch)``
 the reduced variant the CPU tests use (2 layers, d_model 256), and
@@ -23,6 +23,7 @@ from repro_torch.configs.gpt2_base import gpt2_base
 from repro_torch.configs.gpt2_large import gpt2_large
 from repro_torch.configs.internlm2_20b import internlm2_20b
 from repro_torch.configs.kimi_k2_1t_a32b import kimi_k2_1t_a32b
+from repro_torch.configs.paligemma_3b import paligemma_3b
 from repro_torch.configs.phi3_medium_14b import phi3_medium_14b
 from repro_torch.configs.qwen2_7b import qwen2_7b
 from repro_torch.configs.rwkv6_7b import rwkv6_7b
@@ -40,8 +41,8 @@ def register(fn: Callable[[], ModelConfig]) -> Callable[[], ModelConfig]:
 
 
 for _fn in (command_r_plus_104b, deepseek_v2_236b, gpt2_base, gpt2_large, internlm2_20b,
-            kimi_k2_1t_a32b, phi3_medium_14b, qwen2_7b, rwkv6_7b, seamless_m4t_medium,
-            vicuna_7b, zamba2_7b):
+            kimi_k2_1t_a32b, paligemma_3b, phi3_medium_14b, qwen2_7b, rwkv6_7b,
+            seamless_m4t_medium, vicuna_7b, zamba2_7b):
     register(_fn)
 
 

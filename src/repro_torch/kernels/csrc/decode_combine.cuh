@@ -9,7 +9,7 @@
 // 0, so a row whose partitions are all empty combines to 0.
 //
 // One block per (batch row, head), one thread per output element: HD
-// threads (64, 112 or 128 for GQA heads, 512 for the MLA latent). No
+// threads (64, 112, 128 or 256 for GQA heads, 512 for the MLA latent). No
 // thread exchanges values with another (no shuffles), so a block need not
 // be a whole number of warps: at 112 it is three and a half.
 #pragma once

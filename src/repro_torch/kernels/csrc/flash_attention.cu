@@ -25,7 +25,8 @@
 //     cp.async, 16 bytes a thread, rows past the end zero-filled. K and V
 //     have two stages: tile j + 1's copy is in flight while tile j is in
 //     the tensor cores; one barrier a tile.
-//   - Q's fragments are loaded once by ldmatrix and stay in registers.
+//   - Q's fragments are loaded once by ldmatrix and stay in registers, at
+//     hd <= 128. At hd = 256 see the register plan below.
 //   - S = Q·Kᵀ by mma.sync m16n8k16, K's fragments by ldmatrix from the
 //     row-major tile.
 //   - Softmax in base 2: scale·log2(e) and the running max are applied in
@@ -44,16 +45,37 @@
 //     the same f32 accumulators: a second P·V product a k-step, since all 16
 //     rows of the A tile are live (flash_decode's spare rows do not exist
 //     here). V's fragments come from its row-major tile by ldmatrix.trans.
-// Shared memory: hd = 64 45 KB, hd = 112 75 KB, hd = 128 85 KB.
+// Shared memory: hd = 64 45 KB, hd = 112 75 KB, hd = 128 85 KB, hd = 256
+// 168,960 B (one block an SM).
 //
-// Head dims 64, 112 (zamba2-7b's shared attention) and 128 are
-// instantiated. hd = 112 is 7 k-steps of 16 in Q·Kᵀ and 14 n8 tiles of
+// Register plan at hd = 256 (paligemma-3b). Per lane, the hd-128 design
+// would hold Q's fragments (16 rows x 256 bf16 over 32 lanes: 64
+// registers), the output accumulators (16 x 256 f32: 128), the 64-column
+// score tile (32) and P_hi, P_lo (8 a k-step): over Hopper's 255 a thread
+// before any address. So at hd > 128 Q's fragments are not kept: each
+// k-step of Q·Kᵀ re-reads its 16 x 16 A fragment from the Q tile, which
+// stays in shared memory for the block's life, by one ldmatrix.x4 (4
+// registers). That adds 8 KB of shared-memory reads a warp a KV tile beside
+// the 32 KB of K it reads, and changes no sum: the KV step stays 64 columns,
+// so scores, softmax, P_hi + P_lo and the output sums are those of the
+// hd-128 design (tests/test_torch_kernels.py:fa_pv_mirror holds for both).
+// ptxas for sm_90a (printed by chip_smoke.py's phase 1): 255 registers and
+// 188 B of spill stores and loads (a 184 B stack frame), against 252
+// registers and none at hd = 128; 168,960 B of dynamic shared memory. Its
+// times beside SDPA's and its bound are in PERF.md. The f32 kernel at
+// hd = 256: 244 registers, no spill.
+//
+// Head dims 64, 112 (zamba2-7b's shared attention), 128 and 256
+// (paligemma-3b) are instantiated. hd = 112 is 7 k-steps of 16 in Q·Kᵀ and 14 n8 tiles of
 // output, taken in pairs by ldmatrix.x4.trans in P·V (14 is even); the
 // 7 k-steps are taken one at a time, so nothing pairs them. A row is
 // HD + 8 = 120 elements, 240 bytes: 16-byte aligned for cp.async and
 // ldmatrix, and eight rows 60 words apart start on banks 0, 28, 24, ..., 4,
-// so an ldmatrix phase has no bank conflict. The f32 kernel needs hd % 4
-// == 0 (float4 rows) and hd % 8 == 0 (n8 output tiles); 112 is both.
+// so an ldmatrix phase has no bank conflict (hd = 256: rows of 264
+// elements, 132 words, banks 0, 4, ..., 28). The f32 kernel needs hd % 4
+// == 0 (float4 rows) and hd % 8 == 0 (n8 output tiles); 112 and 256 are
+// both. At hd = 256 its shared memory is 220,160 B, under the 232,448 B a
+// block may opt in to, and its accumulators 128 registers a lane.
 //
 // Both element types can also write each row's log-sum-exp (a null pointer
 // writes nothing; the output is the same either way), which the backward in
@@ -91,6 +113,9 @@ struct TcLayout {
   static constexpr int LD = HD + 8;
   static constexpr int TILE = kColsK * LD;
   static constexpr int bytes = 2 * (kRowsQ * LD + 2 * 2 * TILE);
+  // Q's fragments kept in registers for the block's life (hd <= 128), or
+  // re-read from the Q tile at each k-step (hd = 256: the register plan)
+  static constexpr bool Q_REGS = HD <= 128;
 };
 
 // Two probabilities as P_hi + P_lo: hi = (a, b) rounded to bf16, lo = the
@@ -127,6 +152,7 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
                      int window, float scale_log2) {
   using Lay = TcLayout<HD>;
   constexpr int LD = Lay::LD, KSTEPS = HD / 16, NO = HD / 8;
+  constexpr bool Q_REGS = Lay::Q_REGS;
   extern __shared__ __align__(16) unsigned char smem_raw[];
   __nv_bfloat16* qs = reinterpret_cast<__nv_bfloat16*>(smem_raw);
   __nv_bfloat16* kv_s = qs + kRowsQ * LD;            // stage st: K at 2·st·TILE, V after it
@@ -169,8 +195,10 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   cp_async_commit();
 
   // rows g ([0]) and g + 8 ([1]): the running max of the scaled scores
-  // (base 2), this lane's partial sum; the output sums
-  uint32_t qf[KSTEPS][4];
+  // (base 2), this lane's partial sum; the output sums. qf: Q's fragments,
+  // all k-steps (Q_REGS) or the current one
+  const __nv_bfloat16* qw = qs + 16 * warp * LD + a_rows(LD);
+  uint32_t qf[Q_REGS ? KSTEPS : 1][4];
   float mrow[2] = {kNegInf, kNegInf}, lrow[2] = {0.f, 0.f}, oacc[NO][4];
 #pragma unroll
   for (int n = 0; n < NO; ++n) oacc[n][0] = oacc[n][1] = oacc[n][2] = oacc[n][3] = 0.f;
@@ -179,9 +207,9 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     const int j0 = kv_begin + it * kColsK;
     cp_async_wait<0>();
     __syncthreads();   // tile it is visible to all, and every warp is done with tile it - 1
-    if (it == 0) {
+    if (Q_REGS && it == 0) {
 #pragma unroll
-      for (int s = 0; s < KSTEPS; ++s) ldmatrix_x4(qf[s], qs + 16 * warp * LD + a_rows(LD) + 16 * s);
+      for (int s = 0; s < KSTEPS; ++s) ldmatrix_x4(qf[Q_REGS ? s : 0], qw + 16 * s);
     }
     {   // tile it + 1 into the stage tile it - 1 used; one group a step, empty or not
       if (it + 1 < n_tiles) {
@@ -203,14 +231,17 @@ flash_attention_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 #pragma unroll
     for (int j = 0; j < 8; ++j) sa[j][0] = sa[j][1] = sa[j][2] = sa[j][3] = 0.f;
 #pragma unroll
-    for (int s = 0; s < KSTEPS; ++s)
+    for (int s = 0; s < KSTEPS; ++s) {
+      if (!Q_REGS) ldmatrix_x4(qf[0], qw + 16 * s);
+      const uint32_t(&qa)[4] = qf[Q_REGS ? s : 0];
 #pragma unroll
       for (int pair = 0; pair < 4; ++pair) {
         uint32_t bf[4];
         ldmatrix_x4(bf, ks + b_rows(LD) + 16 * pair * LD + 16 * s);
-        mma_bf16(sa[2 * pair], qf[s], bf[0], bf[1]);
-        mma_bf16(sa[2 * pair + 1], qf[s], bf[2], bf[3]);
+        mma_bf16(sa[2 * pair], qa, bf[0], bf[1]);
+        mma_bf16(sa[2 * pair + 1], qa, bf[2], bf[3]);
       }
+    }
 
     if (masked) {
       const int pa = p_lo + g, pb = pa + 8;   // the positions of rows g, g + 8
@@ -472,7 +503,7 @@ int launch_hd(const void* q, const void* k, const void* v, void* o, float* lse, 
 // contiguous: each row's natural log-sum-exp of its scaled live scores
 // (below -1e29 for a row with no live column). Returns cudaGetLastError()
 // after the launch (0 on success), or cudaErrorInvalidValue for a head dim
-// without a template (64, 112 and 128 have one).
+// without a template (64, 112, 128 and 256 have one).
 extern "C" int flash_attention_launch(
     const void* q, const void* k, const void* v, void* o, void* lse,
     long long q_b, long long q_h, long long q_s, long long k_b, long long k_h, long long k_s,
@@ -489,6 +520,9 @@ extern "C" int flash_attention_launch(
                           is_bf16, scale, s);
   if (head_dim == 128)
     return launch_hd<128>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
+                          is_bf16, scale, s);
+  if (head_dim == 256)
+    return launch_hd<256>(q, k, v, o, static_cast<float*>(lse), st, B, H, Hkv, S, L, kv_len, q_offset, causal, window,
                           is_bf16, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -56,13 +56,29 @@
 // are merged in shared memory (Hopper's tensor cores take f32 only as
 // TF32). Scores, softmax sums and accumulators are f32 in both.
 //
-// Head dims 64, 112 (zamba2-7b's shared attention) and 128 are
-// instantiated. bf16 at hd = 112: 7 k-steps of 16 in Q·Kᵀ, 14 n8 output
-// tiles taken in pairs in P·V, rows of 120 elements (240 bytes, 16-byte
-// aligned, eight rows on distinct banks), 90 KB a block. f32 at hd = 112: a
-// row takes 28 lanes of 4 values, so a warp holds one row in a group of 32
-// lanes; lanes 28..31 load nothing, add zeros into the row's shuffle sum
-// and write nothing.
+// Head dims 64, 112 (zamba2-7b's shared attention), 128 and 256
+// (paligemma-3b) are instantiated. bf16 at hd = 112: 7 k-steps of 16 in
+// Q·Kᵀ, 14 n8 output tiles taken in pairs in P·V, rows of 120 elements (240
+// bytes, 16-byte aligned, eight rows on distinct banks), 90 KB a block. f32
+// at hd = 112: a row takes 28 lanes of 4 values, so a warp holds one row in
+// a group of 32 lanes; lanes 28..31 load nothing, add zeros into the row's
+// shuffle sum and write nothing.
+//
+// hd = 256, bf16: the same design. Per lane it keeps q's fragments (only
+// A rows 0..7 are loaded, 2 registers a k-step: 32), the accumulators
+// (P_hi·V and P_lo·V of one head row over 256 columns: 128), the 16-row
+// score tile (8) and P's A operand (4): about 180 registers before
+// addresses, under the 255 a thread, so nothing is re-read. The ring stays
+// 3 slots deep: 3 x 16 rows x (K, V) x 264 elements x 2 B = 50,688 B a warp,
+// 202,752 B a block, under the 232,448 B a block may opt in to: one block
+// an SM, which is what auto_splits plans, with 128 KB of K and V in flight
+// an SM. paligemma-3b's GQA group is 8 (H = 8 over one kv-head): one block's
+// 8 query-head rows exactly. f32 at hd = 256: a lane takes 8 values of a row
+// (two float4 loads), so a row is still one warp of 32 lanes.
+// ptxas for sm_90a (printed by chip_smoke.py's phase 1): bf16 255
+// registers, 44 B of spill stores and 56 B of loads (a 48 B stack frame),
+// 202,752 B of dynamic and 256 B of static shared memory; f32 (8 heads a
+// block) 241 registers, no spill, 33,024 B of static shared memory.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
@@ -86,8 +102,8 @@ constexpr int kHeads = 8;      // query heads a block handles (A rows 0..7)
 
 // Shared memory: per warp a ring of kStages slots, each a K and a V chunk
 // [16][LD]. LD = hd + 8: 16 bytes of padding put the eight rows of an
-// ldmatrix on distinct banks. hd = 128: 102 KB a block, two blocks an SM;
-// hd = 112: 90 KB, two; hd = 64: 54 KB, four.
+// ldmatrix on distinct banks. hd = 256: 198 KB a block, one block an SM;
+// hd = 128: 102 KB, two; hd = 112: 90 KB, two; hd = 64: 54 KB, four.
 template <int HD>
 struct TcLayout {
   static_assert(HD % 16 == 0 && (HD / 8) % 2 == 0, "k-steps of 16, n8 output tiles in pairs");
@@ -277,11 +293,12 @@ flash_decode_bf16(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __re
 
 // HD: head dim; GT: query heads handled by one block. A row's LPR lanes
 // sit in a group of GROUP lanes, the power of two the shuffle sum spans;
-// the group's last GROUP - LPR lanes are idle (4 at hd = 112, none at 64
-// or 128).
+// the group's last GROUP - LPR lanes are idle (4 at hd = 112, none at 64,
+// 128 or 256). A lane takes 4 values of a row, 8 at hd = 256 (a row is
+// at most one warp).
 template <int HD, int GT>
 struct Shape {
-  static constexpr int VEC = 4;                     // elements per lane
+  static constexpr int VEC = HD > 128 ? 8 : 4;      // elements per lane
   static constexpr int LPR = HD / VEC;              // lanes that hold a row's values
   static constexpr int GROUP = LPR > 16 ? 32 : LPR > 8 ? 16 : 8;   // lanes per row
   static constexpr int RPW = 32 / GROUP;            // rows a warp holds at once
@@ -289,8 +306,14 @@ struct Shape {
   static constexpr int ROWS = GT >= 8 ? 2 : 4;      // rows per slot per step
 };
 
-__device__ __forceinline__ void widen(const float4& u, float (&out)[4]) {
-  out[0] = u.x, out[1] = u.y, out[2] = u.z, out[3] = u.w;
+// VEC consecutive floats at p (16-byte aligned), as float4 loads
+template <int VEC>
+__device__ __forceinline__ void load_vec(const float* p, float (&out)[VEC]) {
+#pragma unroll
+  for (int i = 0; i < VEC; i += 4) {
+    const float4 u = *reinterpret_cast<const float4*>(p + i);
+    out[i] = u.x, out[i + 1] = u.y, out[i + 2] = u.z, out[i + 3] = u.w;
+  }
 }
 
 template <int HD, int GT>
@@ -326,8 +349,7 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
     l[g] = 0.f;
 #pragma unroll
     for (int x = 0; x < VEC; ++x) acc[g][x] = 0.f, qr[g][x] = 0.f;
-    if (g < gn && holds)
-      widen(*reinterpret_cast<const float4*>(q + b * q_b + (hk * G + g0 + g) * q_h + c), qr[g]);
+    if (g < gn && holds) load_vec<VEC>(q + b * q_b + (hk * G + g0 + g) * q_h + c, qr[g]);
   }
 
   const float* kb = k + b * k_b + hk * k_h + c;
@@ -335,26 +357,25 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
   // The loop bound is uniform over the block, so every lane reaches every
   // shuffle; rows at or past row_end are masked.
   for (int base = row_begin; base < row_end; base += SLOTS * ROWS) {
-    float4 kr[ROWS], vr[ROWS];
+    float kr[ROWS][VEC], vr[ROWS][VEC];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
       const int j = base + r * SLOTS + slot;
-      kr[r] = vr[r] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll
+      for (int x = 0; x < VEC; ++x) kr[r][x] = vr[r][x] = 0.f;
       if (j < row_end && holds) {
-        kr[r] = *reinterpret_cast<const float4*>(kb + j * k_l);
-        vr[r] = *reinterpret_cast<const float4*>(vb + j * v_l);
+        load_vec<VEC>(kb + j * k_l, kr[r]);
+        load_vec<VEC>(vb + j * v_l, vr[r]);
       }
     }
     float s[ROWS][GT];
 #pragma unroll
     for (int r = 0; r < ROWS; ++r) {
-      float kf[VEC];
-      widen(kr[r], kf);
 #pragma unroll
       for (int g = 0; g < GT; ++g) {
         float d = 0.f;
 #pragma unroll
-        for (int x = 0; x < VEC; ++x) d = fmaf(qr[g][x], kf[x], d);
+        for (int x = 0; x < VEC; ++x) d = fmaf(qr[g][x], kr[r][x], d);
 #pragma unroll
         for (int off = S::GROUP / 2; off > 0; off >>= 1) d += __shfl_xor_sync(0xffffffffu, d, off);
         s[r][g] = base + r * SLOTS + slot < row_end ? d * scale : -INFINITY;
@@ -374,11 +395,9 @@ flash_decode_f32(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
         const float p = expf(s[r][g] - mn);
-        float vf[VEC];
-        widen(vr[r], vf);
         l[g] += p;
 #pragma unroll
-        for (int x = 0; x < VEC; ++x) acc[g][x] = fmaf(p, vf[x], acc[g][x]);
+        for (int x = 0; x < VEC; ++x) acc[g][x] = fmaf(p, vr[r][x], acc[g][x]);
       }
       m[g] = mn;
     }
@@ -495,5 +514,7 @@ extern "C" int flash_decode_launch(
     return dispatch<112>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
   if (head_dim == 128)
     return dispatch<128>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
+  if (head_dim == 256)
+    return dispatch<256>(is_bf16, g_tile, q, k, v, op, ls, out, st, B, H, Hkv, lo, hi, per, splits, scale, s);
   return (int)cudaErrorInvalidValue;
 }

@@ -32,7 +32,8 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 112, 128)   # head dims the CUDA forward and backward kernels are built for
+HEAD_DIMS = (64, 112, 128, 256)   # head dims the CUDA forward kernels are built for
+BWD_HEAD_DIMS = (64, 112, 128)    # and the backward's: at 256 its bf16 tiles pass 227 KB
 
 
 def _live_mask(S: int, L: int, *, causal: bool, window: int, q_offset: int,
@@ -120,8 +121,11 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, *others) -> None:
-    """What the CUDA kernels take: shapes, head dims, dtypes and strides."""
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str,
+           head_dims: Tuple[int, ...], *others) -> None:
+    """What the CUDA kernels take: shapes, the head dims of the calling
+    direction's kernels (``HEAD_DIMS`` or ``BWD_HEAD_DIMS``), dtypes and
+    strides."""
     if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
         raise ValueError("flash_attention: expects q (B,H,S,hd), k/v (B,Hkv,L,hd), "
                          f"got {tuple(q.shape)}, {tuple(k.shape)}, {tuple(v.shape)}")
@@ -130,9 +134,9 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, name: str, *others
     if k.shape[0] != B or k.shape[3] != hd or H % Hkv:
         raise ValueError(f"flash_attention: q {tuple(q.shape)} and k {tuple(k.shape)} "
                          "disagree on batch or head dim, or H % Hkv != 0")
-    if hd not in HEAD_DIMS:
+    if hd not in head_dims:
         raise ValueError(f"{name}: head_dim={hd} has no CUDA kernel; "
-                         f"supported: {HEAD_DIMS}")
+                         f"supported: {head_dims}")
     if q.dtype not in (torch.float32, torch.bfloat16) or k.dtype != q.dtype \
             or v.dtype != q.dtype:
         raise ValueError("flash_attention: q, k, v must share one dtype, float32 "
@@ -155,7 +159,7 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *, causal: bool,
         if with_lse:
             return flash_attention_plain(q, k, v, return_lse=True, **kw)
         return flash_attention_plain(q, k, v, **kw), None
-    _check(q, k, v, "flash_attention")
+    _check(q, k, v, "flash_attention", HEAD_DIMS)
     B, H, S, hd = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     out = torch.empty((B, H, S, hd), dtype=q.dtype, device=q.device)
@@ -231,15 +235,15 @@ def flash_attention_bwd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, out: 
     CPU tensors. dq has q's shape, dk and dv k's; all contiguous. In bf16 dq
     is summed over KV tiles by atomic adds, in an order that changes from
     run to run (f32 rounding); dk, dv and the f32 path are deterministic.
-    On CUDA a head dim with no kernel raises ``ValueError`` before any
-    launch."""
+    On CUDA a head dim with no backward kernel (``BWD_HEAD_DIMS``; 256 has
+    a forward only) raises ``ValueError`` before any launch."""
     kw = dict(causal=causal, window=window, q_offset=q_offset, kv_len=kv_len)
     if _build.device_kind(q, k, v, out, dout, lse) == "cpu":
         return flash_attention_bwd_plain(q, k, v, out, dout, lse, **kw)
     vec = 16 // q.element_size()
     if dout.stride(-1) != 1 or any(s % vec for s in dout.stride()[:3]):
         dout = dout.contiguous()
-    _check(q, k, v, "flash_attention_bwd", out, dout)
+    _check(q, k, v, "flash_attention_bwd", BWD_HEAD_DIMS, out, dout)
     B, H, S, hd = q.shape
     Hkv, L = k.shape[1], k.shape[2]
     if lse.shape != (B, H, S) or lse.dtype != torch.float32 or not lse.is_contiguous():

@@ -29,7 +29,7 @@ import torch
 from repro_torch.kernels import _build
 
 NEG_INF = -1e30
-HEAD_DIMS = (64, 112, 128)   # head dims the CUDA kernel is instantiated for
+HEAD_DIMS = (64, 112, 128, 256)   # head dims the CUDA kernel is instantiated for
 G_TILES = (1, 2, 4, 8)       # query heads one f32 block handles, instantiated
 HEADS_PER_BLOCK = 8          # query heads one bf16 block handles (its mma rows)
 ROWS_PER_TILE = 64           # cache rows a bf16 block takes per step: 4 warps x 16

@@ -77,8 +77,10 @@ class Segment:
 
 def plan_segments(cfg: ModelConfig) -> List[Segment]:
     """The model's segments, as the reference's ``plan_segments`` names
-    them; families not ported yet raise, naming the slice that brings them."""
+    them; a family the port does not run raises."""
     L, at = cfg.num_layers, cfg.arch_type
+    if at == "vlm" and cfg.attention == "gqa" and cfg.moe is None:
+        return [Segment("dense", L, "blocks")]     # the frontend is prepended to the sequence
     if cfg.frontend.kind == "none":
         if cfg.attention in ("gqa", "mla"):
             if at == "dense":
@@ -95,13 +97,11 @@ def plan_segments(cfg: ModelConfig) -> List[Segment]:
                     for g, i in enumerate(range(0, L, every))]
     if at == "audio" and cfg.encdec is not None and cfg.attention == "gqa" and cfg.moe is None:
         return [Segment("decoder_cross", L, "decoder")]
-    later = {"vlm": "the VLM slice"}
     raise NotImplementedError(
         f"{cfg.name}: arch_type={cfg.arch_type!r}, attention={cfg.attention!r}, frontend="
-        f"{cfg.frontend.kind!r} is not ported yet; it comes with "
-        f"{later.get(at, 'a later slice')} (the port runs dense and MoE decoders with GQA or "
-        "MLA attention, the RWKV6 and Mamba2 families, the Zamba2 hybrid and the GQA "
-        "encoder-decoder)")
+        f"{cfg.frontend.kind!r} is not ported (the port runs dense and MoE decoders with GQA "
+        "or MLA attention, the RWKV6 and Mamba2 families, the Zamba2 hybrid, the GQA "
+        "encoder-decoder and the GQA VLM)")
 
 
 def dense_ffn_width(cfg: ModelConfig) -> int:
@@ -559,8 +559,13 @@ class Model(nn.Module):
         the caller fills it from ``encode`` and ``encode_cross_kv``."""
         cache = {}
         for seg in self.segments:
-            one = block_cache(self.cfg, seg.kind, batch, length, self.device)
-            cache[seg.name] = _map(lambda t: t[None].expand(seg.count, *t.shape).clone(), one)
+            # one layer's leaves at batch 1 (every leaf is batch-first), widened
+            # over layers and batch: the temporary is one row, not one layer
+            # (paligemma-3b's decode_32k cache, 77 GB at batch 128, leaves no
+            # room for another 4.3 GB layer)
+            one = block_cache(self.cfg, seg.kind, 1, length, self.device)
+            cache[seg.name] = _map(
+                lambda t: t[None].expand(seg.count, batch, *t.shape[1:]).clone(), one)
         if hasattr(self, "shared_attn"):
             cache["shared_attn"] = {
                 f"app{i}": block_cache(self.cfg, "dense", batch, length, self.device)

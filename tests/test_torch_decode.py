@@ -59,6 +59,8 @@ DECODE_CASES = [  # B, H, Hkv, L, hd, kv_len, q_pos, window, splits
     (2, 4, 4, 40, 112, 33, None, 0, 4),       # hd 112 (zamba2-7b), G = 1, ragged kv_len
     (1, 8, 2, 64, 112, 64, 40, 10, 4),        # hd 112, G = 4, q_pos < kv_len - 1, window
     (1, 8, 1, 70, 112, 65, None, 0, 8),       # hd 112, G = 8, 65 live rows in 8 splits
+    (1, 8, 1, 70, 256, 67, None, 0, 8),       # hd 256 (paligemma-3b), G = 8, kv_len in a tile
+    (2, 8, 1, 50, 256, 41, 38, 16, 4),        # hd 256, q_pos < kv_len - 1, window
 ]
 
 

@@ -4,8 +4,9 @@
 - entry points raise without a GPU unless the caller passes ``device="cpu"``;
 - a kernel wrapper handed CUDA tensors launches its kernel or raises: it
   never quietly runs the plain version;
-- a family that is not ported yet raises, naming its later slice, and so
-  does the flash_attention backward at a head dim it has no kernel for;
+- a family the port does not run raises, and so does the flash_attention
+  backward at a head dim it has no kernel for (256, which the forward and
+  the decode take);
 - ``chip_smoke.py`` imports nothing of ``repro`` and fails without a GPU.
 """
 import ast
@@ -257,9 +258,9 @@ def test_mla_decode_raises_on_cuda_misuse(as_if_cuda):
 
 
 def test_unported_families_raise():
-    """The MoE family, Mamba2, the Zamba2 hybrid and the encoder-decoder
-    (audio) are ported and build with the reference's segment names; the
-    VLM family still raises, naming its slice."""
+    """The MoE family, Mamba2, the Zamba2 hybrid, the encoder-decoder
+    (audio) and the VLM are ported and build with the reference's segment
+    names; an arch_type the port does not run raises."""
     from repro_torch.config import EncDecConfig, FrontendConfig, MoEConfig
 
     moe = smoke_config("qwen2-7b").with_overrides(
@@ -281,8 +282,11 @@ def test_unported_families_raise():
     encdec = Model(audio, device="cpu")
     assert [(s.name, s.kind) for s in encdec.segments] == [("decoder", "decoder_cross")]
     assert len(encdec.encoder.blocks) == 2 and encdec.frontend_proj.shape == (48, 256)
-    with pytest.raises(NotImplementedError, match="VLM slice"):
-        Model(vlm, device="cpu")
+    vision = Model(vlm, device="cpu")
+    assert [(s.name, s.kind) for s in vision.segments] == [("blocks", "dense")]
+    assert vision.frontend_proj.shape == (48, 256)
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        Model(vlm.with_overrides(arch_type="diffusion"), device="cpu")
 
 
 def test_flash_attention_bwd_raises_at_a_head_dim_with_no_kernel(as_if_cuda):
@@ -313,6 +317,25 @@ def test_flash_attention_bwd_takes_head_dim_112_to_its_kernel(as_if_cuda, dtype)
         fa_mod.flash_attention_bwd(q, kv, kv, q, q, lse)
     assert not isinstance(info.value, (FellBack, ValueError)), info.value
     assert fa_mod.flash_attention_bwd.launches == before
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_head_dim_256_goes_to_the_forward_and_decode_kernels(as_if_cuda, dtype):
+    """Head dim 256 (paligemma-3b, H = 8 over one kv-head) passes the
+    checks of flash_attention's forward and of flash_decode and goes on to
+    build and launch their kernels, which this machine cannot: each raises
+    there, with no fallback and no launch counted. The backward has no
+    kernel at 256 (test_flash_attention_bwd_raises_at_a_head_dim_with_no_kernel)."""
+    q, kv = torch.zeros(2, 8, 9, 256, dtype=dtype), torch.zeros(2, 1, 9, 256, dtype=dtype)
+    assert 256 in fa_mod.HEAD_DIMS and 256 in fd_mod.HEAD_DIMS
+    assert 256 not in fa_mod.BWD_HEAD_DIMS
+    before = (fa_mod.flash_attention.launches, fd_mod.flash_decode.launches)
+    for call in (lambda: fa_mod.flash_attention(q, kv, kv),
+                 lambda: fd_mod.flash_decode(q[:, :, 0], kv, kv, kv_len=7)):
+        with pytest.raises(Exception) as info:
+            call()
+        assert not isinstance(info.value, (FellBack, ValueError)), info.value
+    assert (fa_mod.flash_attention.launches, fd_mod.flash_decode.launches) == before
 
 
 def test_device_kind_rejects_mixed_devices():

@@ -118,6 +118,8 @@ FLASH_CASES = [  # B, H, Hkv, S, L, hd, causal, window, q_offset, kv_len
     (1, 2, 2, 17, 17, 112, True, 0, 0, None),      # hd 112 (zamba2-7b), MHA, ragged S = L
     (1, 4, 1, 9, 40, 112, True, 6, 31, 36),        # hd 112, G = 4, all masks at once
     (1, 2, 2, 12, 20, 112, False, 0, 0, 15),       # hd 112, not causal, short kv_len
+    (1, 8, 1, 21, 40, 256, True, 0, 19, 35),       # hd 256 (paligemma-3b), G = 8, kv_len in a tile
+    (1, 8, 1, 9, 30, 256, False, 0, 0, 22),        # hd 256, not causal, short kv_len
 ]
 
 
@@ -229,6 +231,7 @@ def test_split_bf16_reproduces_f32_p_to_2_16():
     (1, 2, 2, 70, 70, 64, {}),                                         # two KV tiles, ragged
     (2, 6, 1, 33, 130, 128, {"window": 40, "q_offset": 97, "kv_len": 120}),   # G = 6
     (1, 4, 4, 17, 17, 112, {}),                                        # hd 112
+    (1, 8, 1, 70, 70, 256, {"kv_len": 67}),                            # hd 256, G = 8
     (1, 12, 1, 9, 200, 64, {"q_offset": 191}),                         # G = 12, far along
     (1, 2, 2, 40, 150, 64, {"causal": False, "kv_len": 131}),
 ])
@@ -282,7 +285,9 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             (2, 4, 4, 65, 65, 112, {}),                               # hd 112, MHA
             (2, 8, 2, 65, 200, 112, {"q_offset": 135, "window": 70}),
             (2, 4, 4, 1, 513, 112, {"q_offset": 512}),
-            (1, 12, 2, 130, 130, 128, {})]:                           # G = 6
+            (1, 12, 2, 130, 130, 128, {}),                            # G = 6
+            (2, 8, 1, 70, 100, 256, {"kv_len": 90}),                  # hd 256, G = 8
+            (2, 8, 1, 65, 130, 256, {"causal": False, "kv_len": 100})]:
         q = torch.randn(B, H, S, hd, generator=gen, device=cuda_device).to(dtype)
         k = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
         v = torch.randn(B, Hkv, L, hd, generator=gen, device=cuda_device).to(dtype)
@@ -309,7 +314,9 @@ def test_cuda_kernels_match_plain(cuda_device, dtype):
             (2, 28, 4, 128, 4096, {"kv_len": 5, "q_pos": 3, "splits": 8}),    # empty partitions
             (2, 32, 32, 112, 1000, {"kv_len": 777}),                  # hd 112, G = 1
             (2, 16, 2, 112, 512, {"kv_len": 65, "q_pos": 40}),        # hd 112, G = 8
-            (2, 16, 4, 112, 4096, {"kv_len": 3000, "window": 1000})]:  # hd 112, G = 4
+            (2, 16, 4, 112, 4096, {"kv_len": 3000, "window": 1000}),  # hd 112, G = 4
+            (2, 8, 1, 256, 1000, {"kv_len": 937}),                    # hd 256, G = 8
+            (2, 8, 1, 256, 512, {"kv_len": 65, "q_pos": 40})]:        # hd 256
         q = torch.randn(B, H, hd, generator=gen, device=cuda_device).to(dtype)
         # k, v: the model's (B, L, Hkv, hd) cache, read through transposed views
         k, v = (torch.randn(B, L, Hkv, hd, generator=gen, device=cuda_device)

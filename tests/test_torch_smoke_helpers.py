@@ -94,3 +94,28 @@ def test_plain_attention_routes_the_backward_through_the_plain_version(smoke):
         torch.autograd.grad((ops.gqa_flash(q, k, v, window=4) * w).sum(), (q, k, v))
     assert routed == [{"causal": True, "window": 4, "q_offset": 0, "kv_len": None}]
     assert ops.flash_attention is fa_mod.flash_attention
+
+
+def test_recorded_decode_keeps_the_serve_steps_own_calls(smoke):
+    """paligemma-3b's serve step at smoke size: recorded_decode keeps each
+    layer's flash_decode call with the cache's own K and V views (no copy),
+    and the last step's layer-0 call still holds against the plain version
+    after every later layer and step wrote the cache."""
+    from repro_torch.configs import smoke_config
+    from repro_torch.kernels import flash_decode as fd_mod
+    from repro_torch.launch import make_serve_step
+    from repro_torch.models import Model
+
+    model = Model(smoke_config("paligemma-3b"), device="cpu", seed=0)
+    cache = model.init_cache(3, 12)
+    assert cache["blocks"]["kv"]["k"].shape == (2, 3, 12, 1, 64)
+    assert (cache["blocks"]["kv"]["pos"] == -1).all() and not cache["blocks"]["kv"]["k"].any()
+    serve, tok, seen = make_serve_step(model), torch.tensor([[5], [7], [9]]), []
+    with smoke.recorded_decode(seen):
+        for t in range(4):
+            tok, cache = serve(cache, tok, t)
+    assert ops.flash_decode is fd_mod.flash_decode and len(seen) == 2 * 4
+    q, k, v, kw, out = seen[-2]                          # the last step's layer 0
+    assert k.data_ptr() == cache["blocks"]["kv"]["k"][0].data_ptr() and kw["kv_len"] == 4
+    kw = {x: y for x, y in kw.items() if x != "splits"}
+    torch.testing.assert_close(out, fd_mod.flash_decode_plain(q, k, v, **kw), rtol=0, atol=0)
